@@ -1,0 +1,27 @@
+"""comfystereo_tpu_torch: the PyTorch/CUDA port of comfystereo_tpu.
+
+The JAX package `comfystereo_tpu` stays the reference; this package imports
+`torch` and never `jax`, and nothing of `comfystereo_tpu`. It mirrors the
+JAX package's layout so each module's counterpart is easy to find.
+
+Ported so far: the main depth->stereo path, the default `gpu_warp` fill with
+the directional depth blur, through `stereo_pipeline`, the Stereo Image node
+and the video loop. Its two accelerator kernels are hand-written CUDA for
+Hopper (sm_90a) in `csrc/`: the forward warp (`kernels/warp_kernel.py`) and
+the row edge-distance transform (`kernels/distance.py`). Each wrapper runs
+its plain PyTorch version for CPU tensors.
+
+Entry points (`StereoImageNode.generate`, `convert_video`, `device_chunk`)
+take `device=None`, which means CUDA; without a GPU they raise unless
+`device="cpu"` is passed.
+"""
+from __future__ import annotations
+
+from .config import (FILL_TECHNIQUES, MODES, UI_FILL_MAPPING,  # noqa: F401
+                     StereoConfig, config_from_fields)
+from .device import resolve_device  # noqa: F401
+from .pipeline import stereo_pipeline  # noqa: F401
+from .nodes.stereo_image import (  # noqa: F401
+    NODE_CLASS_MAPPINGS, NODE_DISPLAY_NAME_MAPPINGS, StereoImageNode)
+
+__version__ = "0.1.0"

@@ -1,0 +1,33 @@
+"""Device selection for the port's entry points.
+
+Entry points run on the card unless the caller asks for the CPU: `device=None`
+means CUDA, and with no GPU present that is an error, never a silent move to
+the CPU. Functions below the entry points run on the device of the tensors
+they are given.
+"""
+from __future__ import annotations
+
+from typing import Union
+
+import numpy as np
+import torch
+
+DeviceLike = Union[None, str, torch.device]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """`None` -> `cuda`; raises RuntimeError when a CUDA device is asked for
+    (explicitly or by default) and none is available."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def as_float_tensor(x, device: torch.device) -> torch.Tensor:
+    """numpy array or tensor -> float32 tensor on `device` (no copy when it
+    is already one)."""
+    t = x.detach() if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(x))
+    return t.to(device=device, dtype=torch.float32)

@@ -1,0 +1,29 @@
+"""Argument checks shared by the kernel wrappers."""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+
+def check_rows(name: str, tensors: Sequence[torch.Tensor], dtype: torch.dtype) -> None:
+    """Raise unless every tensor is 2-D [rows, width], contiguous, of `dtype`,
+    and of the first one's shape and device."""
+    first = tensors[0]
+    want = tuple(first.shape)
+    if len(want) != 2:
+        raise ValueError(f"{name}: expected [rows, width], got {want}")
+    for t in tensors:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name}: expected shape {want}, got {tuple(t.shape)}")
+        if t.device != first.device:
+            raise ValueError(f"{name}: tensors on {first.device} and {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def stream_ptr(device: torch.device) -> int:
+    """The raw cudaStream_t of PyTorch's current stream on `device`."""
+    return torch.cuda.current_stream(device).cuda_stream

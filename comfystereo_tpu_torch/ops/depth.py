@@ -1,0 +1,51 @@
+"""Depth-to-disparity math, in the same float32 forms as the JAX package:
+
+    normalize (per-image min/max) -> subtract convergence_point
+    -> signed power curve  offset = sign(d) * |d|^exponent
+    -> pixel scale         px = offset * divergence_px + separation_px
+
+Depth convention: white = near, black = far (reference :1434).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def normalize_depth(depth: torch.Tensor) -> torch.Tensor:
+    """Per-image min/max normalization of a depth map [..., H, W] to [0, 1].
+
+    A flat depth map maps to all-zeros (reference :1591-1594).
+    """
+    d = depth.float()
+    dmin = d.amin(dim=(-2, -1), keepdim=True)
+    dmax = d.amax(dim=(-2, -1), keepdim=True)
+    rng = dmax - dmin
+    return torch.where(rng > 1e-6, (d - dmin) / torch.clamp(rng, min=1e-6),
+                       0.0)
+
+
+def signed_power(x: torch.Tensor, exponent: float) -> torch.Tensor:
+    """sign(x) * |x| ** exponent (reference :94-96)."""
+    return torch.sign(x) * torch.pow(torch.abs(x), exponent)
+
+
+def depth_offsets(normalized_depth: torch.Tensor, convergence_point: float,
+                  stereo_offset_exponent: float) -> torch.Tensor:
+    """Unit offset in [-1, 1]-ish from normalized depth (before pixel scaling)."""
+    return signed_power(normalized_depth - convergence_point,
+                        stereo_offset_exponent)
+
+
+def pixel_offsets(depth: torch.Tensor, divergence_px: float,
+                  separation_px: float, stereo_offset_exponent: float,
+                  convergence_point: float, *,
+                  prenormalized: bool = False) -> torch.Tensor:
+    """Full chain: depth map -> per-pixel horizontal offset in pixels."""
+    nd = depth if prenormalized else normalize_depth(depth)
+    off = depth_offsets(nd, convergence_point, stereo_offset_exponent)
+    return off * divergence_px + separation_px
+
+
+def percent_to_px(divergence: float, separation: float, width: int):
+    """Percent-of-width -> pixels (reference :1602-1603, :1063-1065)."""
+    return (divergence / 100.0) * width, (separation / 100.0) * width

@@ -1,0 +1,43 @@
+"""Row-scan primitives along the last axis, batched over leading axes.
+
+The JAX package writes these as associative scans; in PyTorch they are
+`cummax`/`cummin` over marked column indices. Only the helpers the gpu_warp
+path uses are here so far.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def _cols(valid: torch.Tensor) -> torch.Tensor:
+    return torch.arange(valid.shape[-1], device=valid.device)
+
+
+def nearest_true_left(valid: torch.Tensor) -> torch.Tensor:
+    """Index of the nearest True at-or-left of each position; -1 if none."""
+    marked = torch.where(valid, _cols(valid), -1)
+    return torch.cummax(marked, dim=-1).values
+
+
+def nearest_true_right(valid: torch.Tensor) -> torch.Tensor:
+    """Index of the nearest True at-or-right of each position; W if none."""
+    w = valid.shape[-1]
+    marked = torch.where(valid, _cols(valid), w)
+    return torch.cummin(marked.flip(-1), dim=-1).values.flip(-1)
+
+
+def forward_fill(values: Tuple[torch.Tensor, ...], valid: torch.Tensor):
+    """Propagate the last valid value rightward along the last axis.
+
+    values: tuple of tensors [..., W]; valid: bool [..., W].
+    Returns (filled_values, has_value). Positions before the first valid
+    entry hold the row's first value with has_value False: that is what the
+    JAX package's associative scan carries there (its docstring says they
+    keep their own value; the code gives the first).
+    """
+    idx = nearest_true_left(valid)
+    has = idx >= 0
+    idx = idx.clamp(min=0)  # -1 -> 0: the row's first value
+    return tuple(v.gather(-1, idx) for v in values), has

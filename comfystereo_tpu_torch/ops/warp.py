@@ -1,0 +1,54 @@
+"""Forward stereo warp with z-buffer semantics (reference forward_warp_gpu,
+stereoimage_generation.py:277-450).
+
+Each source pixel moves by its depth-derived offset; adjacent pixels whose
+offsets differ by less than `gradient_threshold` form segments; overlapping
+segments are z-buffered (nearer depth wins, strict `z > best + 1e-6`, ties to
+the lowest source index); disocclusion gaps are filled by interpolating
+source positions between the gap borders with a sqrt bias toward the
+background side; colours are sampled bilinearly.
+
+The work is done row by row in `kernels/warp_kernel.py`: the CUDA kernel for
+CUDA tensors, the plain PyTorch version for CPU tensors.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from . import depth as depth_ops
+from ..kernels.warp_kernel import warp_rows
+
+
+def forward_warp(image: torch.Tensor, depth: torch.Tensor, divergence_px: float,
+                 separation_px: float, stereo_offset_exponent: float,
+                 convergence_point: float = 0.5,
+                 gradient_threshold: float = 1.5,
+                 max_stretch: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward warp one eye.
+
+    image: [B, H, W, C] float 0-1 (float32 or bfloat16 colour); depth:
+    [B, H, W] (any scale, normalized per image). divergence_px /
+    separation_px: floats (pixels). Returns (warped [B,H,W,C] in the colour
+    dtype, gap_mask [B,H,W] bool, True = disocclusion).
+    """
+    nd = depth_ops.normalize_depth(depth)
+    offset = depth_ops.pixel_offsets(
+        nd, divergence_px, separation_px, stereo_offset_exponent,
+        convergence_point, prenormalized=True)
+    # Static displacement bound: |offset| <= max(conv, 1-conv)^exp * |div| + |sep|.
+    cmax = max(abs(convergence_point), abs(1.0 - convergence_point))
+    bound = (cmax ** stereo_offset_exponent) * abs(divergence_px) \
+        + abs(separation_px)
+    max_disp = int(math.ceil(bound)) + 4
+    if image.dtype not in (torch.float32, torch.bfloat16):
+        image = image.float()
+    b, h, w, c = image.shape
+    warped, gap = warp_rows(
+        offset.reshape(b * h, w).contiguous(), nd.reshape(b * h, w).contiguous(),
+        image.reshape(b * h, w, c).contiguous(),
+        gradient_threshold=float(gradient_threshold),
+        max_stretch=int(max_stretch), max_disp=max_disp)
+    return warped.reshape(b, h, w, c), gap.reshape(b, h, w)

@@ -1,0 +1,108 @@
+"""Port's stereo_pipeline (gpu_warp, plain versions on the CPU) vs the JAX
+package's stereo_pipeline.
+
+Stated tolerances:
+- blur off: mask bit-equal, colours atol 1e-5 (measured: bit-equal);
+- blur on: depth outputs atol 1e-5 (0-1 domain), mask mismatch <= 0.1% of
+  pixels, trunc(x*255) within 1 LSB on >= 99.9% of values (measured: mask
+  bit-equal, colours within 1.3e-6).
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import comfystereo_tpu as cs
+from comfystereo_tpu.utils import fixtures
+import comfystereo_tpu_torch as ct
+from comfystereo_tpu_torch import pipeline as tpipe
+
+B, H, W = 2, 48, 64
+MODES3 = ("left-right", "top-bottom", "red-cyan-anaglyph")
+
+
+def _inputs(seed=0):
+    return fixtures.batch_fixture(B, H, W, seed=seed)
+
+
+def _run_both(jcfg, imgs, depths):
+    jo = cs.stereo_pipeline(jnp.asarray(imgs), jnp.asarray(depths), jcfg)
+    to = ct.stereo_pipeline(torch.from_numpy(imgs), torch.from_numpy(depths),
+                            ct.config_from_fields(jcfg))
+    return jo, to
+
+
+@pytest.mark.parametrize("color_dtype", ["float32", "bfloat16"])
+def test_pipeline_blur_off_matches(color_dtype):
+    imgs, depths = _inputs()
+    jcfg = cs.StereoConfig(modes=MODES3, depth_map_blur=False,
+                           color_dtype=color_dtype)
+    jo, to = _run_both(jcfg, imgs, depths)
+    np.testing.assert_array_equal(np.asarray(jo["mask"]), to["mask"].numpy())
+    for a, b in zip(jo["stereo"], to["stereo"]):
+        assert b.shape == a.shape
+        assert (b.dtype == torch.bfloat16) == (color_dtype == "bfloat16")
+        np.testing.assert_allclose(b.float().numpy(),
+                                   np.asarray(a.astype(jnp.float32)),
+                                   rtol=0, atol=1e-5)
+    for k in ("left_depth", "right_depth"):
+        np.testing.assert_allclose(to[k].numpy(), np.asarray(jo[k]), rtol=0,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_pipeline_default_config_matches(seed):
+    imgs, depths = _inputs(seed)
+    jcfg = cs.StereoConfig(modes=MODES3)
+    assert jcfg.depth_map_blur
+    jo, to = _run_both(jcfg, imgs, depths)
+    for k in ("left_depth", "right_depth"):
+        np.testing.assert_allclose(to[k].numpy(), np.asarray(jo[k]), rtol=0,
+                                   atol=1e-5)
+    assert (np.asarray(jo["mask"]) != to["mask"].numpy()).mean() <= 0.001
+    for a, b in zip(jo["stereo"], to["stereo"]):
+        qa = np.trunc(np.asarray(a) * 255.0)
+        qb = np.trunc(b.numpy() * 255.0)
+        assert (np.abs(qa - qb) <= 1).mean() >= 0.999
+
+
+def test_pipeline_0_255_depth_and_outputs():
+    imgs, depths = _inputs()
+    cfg = ct.StereoConfig(modes=MODES3)
+    out = ct.stereo_pipeline(torch.from_numpy(imgs),
+                             torch.from_numpy(depths * 255.0), cfg)
+    ref = ct.stereo_pipeline(torch.from_numpy(imgs), torch.from_numpy(depths), cfg)
+    # 0-1 depth is scaled to 0-255 first, so both scales give one result
+    np.testing.assert_allclose(out["stereo"][0].numpy(), ref["stereo"][0].numpy(),
+                               atol=1e-5)
+    assert out["stereo"][0].shape == (B, H, 2 * W, 3)
+    assert out["stereo"][1].shape == (B, 2 * H, W, 3)
+    assert out["stereo"][2].shape == (B, H, W, 3)
+    assert out["mask"].shape == (B, H, W) and out["mask"].dtype == torch.float32
+    for o in out["stereo"]:
+        assert float(o.min()) >= 0.0 and float(o.max()) <= 1.0
+    assert not torch.allclose(out["left_depth"], out["right_depth"])
+
+
+def test_balance_extremes_passthrough():
+    imgs, depths = _inputs()
+    cfg = ct.StereoConfig(stereo_balance=1.0, modes=("only-right",),
+                          depth_map_blur=False)
+    out = ct.stereo_pipeline(torch.from_numpy(imgs), torch.from_numpy(depths), cfg)
+    np.testing.assert_array_equal(out["stereo"][0].numpy(), imgs)
+    # the passed-through eye contributes no gaps; the warped eye does
+    jcfg = dataclasses.replace(cs.StereoConfig(), stereo_balance=1.0,
+                               modes=("only-right",), depth_map_blur=False)
+    jo = cs.stereo_pipeline(jnp.asarray(imgs), jnp.asarray(depths), jcfg)
+    np.testing.assert_array_equal(np.asarray(jo["mask"]), out["mask"].numpy())
+
+
+@pytest.mark.parametrize("fill", [f for f in ct.FILL_TECHNIQUES if f != "gpu_warp"])
+def test_unported_fill_raises(fill):
+    imgs, depths = _inputs()
+    cfg = ct.StereoConfig(fill_technique=fill)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ct.stereo_pipeline(torch.from_numpy(imgs), torch.from_numpy(depths), cfg)
+    assert fill in tpipe.UNPORTED_FILLS

@@ -4,12 +4,15 @@ The JAX package `comfystereo_tpu` stays the reference; this package imports
 `torch` and never `jax`, and nothing of `comfystereo_tpu`. It mirrors the
 JAX package's layout so each module's counterpart is easy to find.
 
-Ported so far: the main depth->stereo path, the default `gpu_warp` fill with
-the directional depth blur, through `stereo_pipeline`, the Stereo Image node
-and the video loop. Its two accelerator kernels are hand-written CUDA for
-Hopper (sm_90a) in `csrc/`: the forward warp (`kernels/warp_kernel.py`) and
-the row edge-distance transform (`kernels/distance.py`). Each wrapper runs
-its plain PyTorch version for CPU tensors.
+Ported so far: the depth->stereo path through `stereo_pipeline`, the Stereo
+Image node and the video loop, with the directional depth blur and every
+fill technique: the default `gpu_warp` and the CPU-parity fills with the
+exact polylines renderer. Its four accelerator kernels are hand-written CUDA
+for Hopper (sm_90a) in `csrc/`: the forward warp (`kernels/warp_kernel.py`),
+the row edge-distance transform (`kernels/distance.py`), the bounded gather
+(`kernels/gather.py`) and the exact polylines scan
+(`kernels/polylines_exact.py`). Each wrapper runs its plain PyTorch version
+for CPU tensors.
 
 Entry points (`StereoImageNode.generate`, `convert_video`, `device_chunk`)
 take `device=None`, which means CUDA; without a GPU they raise unless

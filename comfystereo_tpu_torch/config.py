@@ -97,7 +97,8 @@ class StereoConfig:
     max_stretch: int = 8
 
     # Exact sub-interval integration for the polylines fills; False selects
-    # the supersampled renderer. Neither fill is ported yet.
+    # the supersampled renderer, which is not ported yet (the fills that
+    # reach it raise NotImplementedError).
     polylines_exact: bool = True
     # Supersampling rate for the supersampled polylines renderer.
     polylines_samples: int = 8

@@ -47,6 +47,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "cs_warp_rows_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
         "cs_warp_rows_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     },
+    "gather": {
+        "cs_gather_rows_b32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
+    "polylines_exact": {
+        "cs_polylines_exact_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

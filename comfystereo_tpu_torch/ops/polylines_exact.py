@@ -1,0 +1,58 @@
+"""Exact polylines renderer: per-sub-interval integration, bit-parity mode.
+
+Reference spec: `apply_stereo_divergence_polylines`
+(stereoimage_generation.py:1912-1992). Per output pixel, the breakpoints are
+the sorted warped point positions inside [col, col+1); at each
+(epsilon-shrunk) sub-interval's center the ACTIVE segment (x0 < center <=
+x1) with the maximum interpolated closeness wins (strict improvement,
+0 < ip < 1; the lowest-x0 active segment when none qualifies), and its
+colour times the sub-interval's width goes into a 0.5-biased accumulator
+truncated to uint8.
+
+The rows are rendered by `kernels/polylines_exact.py`: the CUDA kernel for
+CUDA tensors, and for CPU tensors the plain version, which is the JAX
+package's XLA path (`_piece_geometry`, `_winner_scan_xla`) translated to
+PyTorch. Every sweep quantity is float32 in the reference's expression
+forms, so the output is bit-equal in uint8 to the JAX package's.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import depth as depth_ops
+from ..kernels.polylines_exact import polylines_exact_rows
+
+
+def _exact_core(image: torch.Tensor, coord: torch.Tensor, sep_px: float,
+                sharp: bool, max_pieces: int, max_disp: int) -> torch.Tensor:
+    """image [B,H,W,C] float32, coord [B,H,W] float32 -> [B,H,W,C]."""
+    b, h, w = coord.shape
+    c = image.shape[-1]
+    colsf = torch.arange(w, dtype=torch.float32, device=coord.device)
+    x = colsf + 0.5 + coord + sep_px
+    cl = torch.abs(coord)
+    out = polylines_exact_rows(
+        x.reshape(b * h, w).contiguous(), cl.reshape(b * h, w).contiguous(),
+        image.reshape(b * h, w, c).contiguous(), sharp=sharp,
+        max_pieces=max_pieces, max_disp=max_disp)
+    return out.reshape(b, h, w, c)
+
+
+def apply_polylines_exact(image: torch.Tensor, norm_depth: torch.Tensor,
+                          divergence_px: float, separation_px: float,
+                          stereo_offset_exponent: float, sharp: bool = True,
+                          max_pieces: int = 12) -> torch.Tensor:
+    """Exact-integration polylines projection for one eye.
+
+    image: [B,H,W,C] float32 holding uint8 values; norm_depth: [B,H,W]
+    normalized depth minus convergence point (dispatcher convention).
+    Returns [B,H,W,C] float32 holding uint8 values.
+    """
+    coord = depth_ops.signed_power(norm_depth, stereo_offset_exponent) \
+        * divergence_px
+    max_off = abs(divergence_px) + abs(separation_px)
+    max_disp = int(math.ceil(max_off)) + 4
+    return _exact_core(image.float(), coord.float(), float(separation_px),
+                       bool(sharp), int(max_pieces), max_disp)

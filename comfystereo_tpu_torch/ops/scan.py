@@ -2,7 +2,7 @@
 
 The JAX package writes these as associative scans; in PyTorch they are
 `cummax`/`cummin` over marked column indices. Only the helpers the gpu_warp
-path uses are here so far.
+path and the fills use are here so far.
 """
 from __future__ import annotations
 
@@ -26,6 +26,24 @@ def nearest_true_right(valid: torch.Tensor) -> torch.Tensor:
     w = valid.shape[-1]
     marked = torch.where(valid, _cols(valid), w)
     return torch.cummin(marked.flip(-1), dim=-1).values.flip(-1)
+
+
+def segmented_running_min(values: torch.Tensor, reset: torch.Tensor) -> torch.Tensor:
+    """Prefix min along the last axis that restarts at positions where
+    `reset`: at a reset position the running min restarts from that
+    position's value. Integer values of at most 32 bits.
+
+    One cummin over int64 keys `value - segment * 2**32`, with the segment
+    count taken by a cumsum of the resets: 2**32 exceeds the values' range,
+    so every earlier segment's keys lie above the current segment's.
+    """
+    if values.dtype not in (torch.int32, torch.int16, torch.int8, torch.uint8):
+        raise TypeError(f"segmented_running_min takes integers of at most 32 "
+                        f"bits, got {values.dtype}")
+    span = 1 << 32
+    seg = torch.cumsum(reset.long(), dim=-1)
+    keyed = values.long() - seg * span
+    return (torch.cummin(keyed, dim=-1).values + seg * span).to(values.dtype)
 
 
 def forward_fill(values: Tuple[torch.Tensor, ...], valid: torch.Tensor):

@@ -9,8 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from comfystereo_tpu_torch import StereoConfig, stereo_pipeline
-from comfystereo_tpu_torch.kernels import distance, warp_kernel
+from comfystereo_tpu_torch import FILL_TECHNIQUES, StereoConfig, stereo_pipeline
+from comfystereo_tpu_torch.kernels import distance, gather, polylines_exact, warp_kernel
 from comfystereo_tpu_torch.ops import depth as depth_ops
 from comfystereo_tpu_torch.utils import fixtures
 
@@ -80,3 +80,75 @@ def test_pipeline_on_card_matches_cpu(dev):
     assert torch.equal(gpu["mask"].cpu(), cpu["mask"])
     for g, c in zip(gpu["stereo"], cpu["stereo"]):
         assert float((g.cpu() - c).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("m,n", [(300, 300), (320, 300), (300, 257)])
+def test_gather_kernel_matches_torch_gather(dev, dtype, m, n):
+    rng = np.random.default_rng(m + n)
+    values = torch.from_numpy(rng.integers(-10 ** 6, 10 ** 6, (3, 7, m))).to(dev, dtype)
+    idx = np.clip(np.arange(n) + rng.integers(-20, 21, (3, 7, n)), 0, m - 1)
+    idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
+    before = gather.LAUNCHES
+    got = gather.bounded_take_along_w(values, idx, 24)
+    torch.cuda.synchronize()
+    assert gather.LAUNCHES == before + 1
+    assert torch.equal(got, torch.gather(values, -1, idx.long()))
+
+
+def test_gather_kernel_broadcasts_index_planes(dev):
+    """[B, 1, H, N] indices over [B, C, H, M] values, as the fills call it."""
+    rng = np.random.default_rng(5)
+    values = torch.from_numpy(rng.standard_normal((2, 3, 9, 200)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, 200, (2, 1, 9, 200)).astype(np.int32)).to(dev)
+    got = gather.bounded_take_along_w(values, idx, 200)
+    assert torch.equal(got, gather.bounded_take_along_w_plain(values, idx))
+
+
+def _poly_rows(dev, depth, div_px, sep_px, channels):
+    img = fixtures.create_test_image(H, W).astype(np.float32)[..., :channels]
+    nd = depth_ops.normalize_depth(torch.from_numpy(depth).to(dev)[None]) - 0.5
+    coord = depth_ops.signed_power(nd, 2.0)[0] * div_px
+    x = torch.arange(W, dtype=torch.float32, device=dev) + 0.5 + coord + sep_px
+    colors = torch.from_numpy(np.ascontiguousarray(img)).to(dev)
+    max_disp = int(np.ceil(abs(div_px) + abs(sep_px))) + 4
+    return x.contiguous(), coord.abs().contiguous(), colors, max_disp
+
+
+@pytest.mark.parametrize("sharp", [True, False])
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("div_px,sep_px,kind", [(3.0, 0.0, "fixture"), (-3.0, 0.0, "fixture"),
+                                                (4.5, 1.0, "noise"), (-6.0, 0.5, "noise")])
+def test_polylines_kernel_matches_plain(dev, sharp, channels, div_px, sep_px, kind):
+    depth = (fixtures.create_depth_map(H, W).astype(np.float32) if kind == "fixture" else
+             np.random.default_rng(0).uniform(0, 255, (H, W)).astype(np.float32))
+    x, cl, colors, max_disp = _poly_rows(dev, depth, div_px, sep_px, channels)
+    kw = dict(sharp=sharp, max_pieces=12, max_disp=max_disp)
+    before = polylines_exact.LAUNCHES
+    got = polylines_exact.polylines_exact_rows(x, cl, colors, **kw)
+    torch.cuda.synchronize()
+    assert polylines_exact.LAUNCHES == before + 1
+    want = polylines_exact.polylines_exact_rows_plain(x, cl, colors, sharp, 12, max_disp)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fill", [f for f in FILL_TECHNIQUES if f != "gpu_warp"])
+def test_fill_pipeline_on_card_matches_cpu(dev, fill):
+    """Stereo outputs equal in uint8 (x255) and masks bit-equal; the hybrid
+    fills (torch.cumsum's and exp's rounding differ between card and CPU)
+    within 1 LSB on at most 1% of values."""
+    imgs, depths = fixtures.batch_fixture(2, H, W)
+    cfg = StereoConfig(depth_map_blur=False, fill_technique=fill,
+                       modes=("left-right", "red-cyan-anaglyph"))
+    gpu = stereo_pipeline(torch.from_numpy(imgs).to(dev),
+                          torch.from_numpy(depths).to(dev), cfg)
+    cpu = stereo_pipeline(torch.from_numpy(imgs), torch.from_numpy(depths), cfg)
+    hybrid = fill.startswith("hybrid")
+    mask_off = float((gpu["mask"].cpu() != cpu["mask"]).float().mean())
+    assert mask_off <= (0.001 if hybrid else 0.0)
+    for g, c in zip(gpu["stereo"], cpu["stereo"]):
+        diff = (torch.round(g.cpu() * 255) - torch.round(c * 255)).abs()
+        if hybrid:
+            assert float(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 0.01
+        else:
+            assert float(diff.max()) == 0.0

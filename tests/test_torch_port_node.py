@@ -66,10 +66,23 @@ def test_generate_resized_depth_matches_jax(dh, dw):
 
 
 def test_generate_unported_fill_raises():
-    imgs, depths = fixtures.batch_fixture(1, H, W)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnode.StereoImageNode().generate(imgs, depths, fill_technique="No fill",
-                                         device="cpu")
+    """Every fill the node offers is ported: none reaches the unported
+    supersampled polylines (the node keeps polylines_exact=True), and
+    "Fill - Polylines Sharp" matches the JAX node (stereo bit-equal in uint8,
+    x255; mask bit-equal; depth outputs atol 1e-5)."""
+    offered = jnode.StereoImageNode.INPUT_TYPES()["required"]["fill_technique"][0]
+    assert len(offered) == 8
+    assert tnode.StereoImageNode.INPUT_TYPES()["required"]["fill_technique"][0] == offered
+    imgs, depths = fixtures.batch_fixture(2, H, W, seed=6)
+    kw = dict(fill_technique="Fill - Polylines Sharp", modes="left-right")
+    want = jnode.StereoImageNode().generate(imgs, depths, **kw)
+    got = tnode.StereoImageNode().generate(imgs, depths, device="cpu", **kw)
+    assert got[0].shape == (2, H, 2 * W, 3) and got[3].shape == (2, H, 2 * W)
+    np.testing.assert_array_equal(np.round(got[0].numpy() * 255.0),
+                                  np.round(want[0] * 255.0))
+    np.testing.assert_array_equal(got[3].numpy(), want[3])
+    np.testing.assert_allclose(got[1].numpy(), want[1], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got[2].numpy(), want[2], rtol=0, atol=1e-5)
 
 
 def test_generate_default_device_needs_cuda():

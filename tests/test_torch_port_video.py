@@ -81,12 +81,14 @@ def test_entry_points_default_device_needs_cuda(tmp_path):
 
 
 def test_convert_video_device_error_does_not_hang(tmp_path):
-    """A chunk that fails on the device (here an unported fill) surfaces its
-    error; the decoder thread, blocked on a full queue, is released."""
+    """A chunk that fails on the device (here a fill that reaches the
+    unported supersampled polylines) surfaces its error; the decoder thread,
+    blocked on a full queue, is released."""
     import threading
 
     src, dep = _write_fixture_videos(str(tmp_path))
-    cfg = config_from_fields(dict(fill_technique="naive", batch_size=1))
+    cfg = config_from_fields(dict(fill_technique="polylines_sharp",
+                                  polylines_exact=False, batch_size=1))
     caught = []
 
     def run():

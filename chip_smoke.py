@@ -7,7 +7,7 @@ Runs from the repository root (it imports `comfystereo_tpu_torch` from
 beside itself; it never imports JAX or `comfystereo_tpu`). Phases, in order;
 any failure ends the run with a non-zero exit code:
 
-1. device: the card's name and power limit; build all four kernels with
+1. device: the card's name and power limit; build all five kernels with
    nvcc (sm_90a, one nvcc per source, all started together);
 2. kernels vs their plain PyTorch versions on the card, at the main path's
    shapes (12 frames of 1080x1920 as [12*1080, 1920] rows): the warp on the
@@ -18,22 +18,37 @@ any failure ends the run with a non-zero exit code:
    fills' shapes, int32 keys and a [B,1,H,W] index plane over [B,3,H,W]
    colour (bit-equal); the exact polylines against its plain version on
    the same 12 frames, sharp and soft, divergence +-4.5% with separation 0
-   and 1%, fixture and noise depth (bit-equal);
+   and 1%, fixture and noise depth (bit-equal); the flash attention against
+   its plain version (`reference`) at the SD 1.5 UNet's bf16 self-attention
+   shapes, [BH, Nq, Nk, D] = [16, 4096, 4096, 40] (level 0, CFG batch 2 x 8
+   heads), [16, 1024, 1024, 80] (level 1) and [16, 4096, 8192, 40] (BN 'bi'),
+   atol 4e-3 on bf16 outputs compared in float32, and a shape outside
+   `supports` (cross-attention, 77 keys) that takes no launch;
 3. the main paths at full size, each with every launch counter set to 0 just
    before and read just after: StereoImageNode().generate on 12 frames of
    1920x1080 with the default config (gpu_warp, depth blur, left-right,
    batch_size=12: warp 2, distance 1), then device_chunk on the same frames
    as uint8 BGR; the node with "Fill - Polylines Sharp" (polylines 2,
    distance 1, warp 0); stereo_pipeline once for each other fill at 1080p
-   B=12 (gather launches printed; every gather fill must launch it);
+   B=12 (gather launches printed; every gather fill must launch it); the
+   StereoDiffusion node in Fast (Warp + Inpaint) mode with its defaults on
+   one 512x512 fixture frame, on the full-width SD 1.5-inpainting UNet and
+   SD VAE in bfloat16 with seeded random weights (flash attention 130:
+   13 UNet calls x 10 self-attentions), then one UNet CFG call and the
+   whole warp_inpaint with the attention forced to its plain version;
 4. card vs CPU: the port's stereo_pipeline on 2 frames of 270x480 on the card
    and on the CPU, gpu_warp and all ten fills, to the slice's tolerances;
+   warp_inpaint at the TINY UNet (9- and 4-channel) and VAE configs in
+   float32 with the same injected noise on the card and on the CPU;
 5. times with CUDA events (warm-up, then >= 10 iterations, fewer for the
    slowest plain versions): each kernel and its plain version at the main
    path's shapes beside the bound (and torch.gather beside the gather), the
    gpu_warp pipeline's ms/frame and fps at 1080p, batch 12, in float32 and
    bfloat16, and the fills' ms/frame at the same size, with stage breakdowns
-   and device idle shares for gpu_warp and polylines_sharp.
+   and device idle shares for gpu_warp and polylines_sharp; the flash kernel,
+   its plain version and `scaled_dot_product_attention` (a yardstick the
+   port never calls) at the three shapes, the bf16 UNet CFG call, VAE
+   encode and decode, and warp_inpaint per frame with its idle share.
 
 It prints one `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Without CUDA, or without the package beside
@@ -41,6 +56,8 @@ it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import os
 import subprocess
@@ -59,8 +76,19 @@ GATHER_FILLS = FILLS[:8]
 HYBRID_SHARE = 0.35
 
 # Published peaks (NVIDIA data sheets, SXM parts, at the full power limit):
-# device-memory bytes/s and float32 FLOP/s outside the tensor cores.
-_PEAKS = {"H100": (3.35e12, 67e12), "H200": (4.8e12, 67e12)}
+# device-memory bytes/s, float32 FLOP/s outside the tensor cores, dense bf16
+# tensor-core FLOP/s, and exponentials/s of the special function units (16
+# per SM per clock, 132 SMs at 1.83 GHz: about 3.9e12).
+_PEAKS = {"H100": (3.35e12, 67e12, 989e12, 3.9e12),
+          "H200": (4.8e12, 67e12, 989e12, 3.9e12)}
+# Flash attention shapes [BH, Nq, Nk, D] of the SD 1.5 UNet at 512x512 in
+# bf16 with CFG (batch 2): level 0 (the timed one), level 1, BN 'bi'.
+FLASH_SHAPES = ((16, 4096, 4096, 40), (16, 1024, 1024, 80), (16, 4096, 8192, 40))
+SD_SIZE, SD_SEED = 512, 1337
+# The node's Fast-mode defaults: 20 PNDM steps at strength 0.6 keep 13 of
+# the 21 PLMS timesteps; each UNet call runs 10 self-attentions the kernel
+# takes (5 at 4096 tokens, 5 at 1024).
+SD_UNET_CALLS, SD_FLASH_PER_CALL = 13, 10
 
 
 def log(msg: str) -> None:
@@ -75,8 +103,9 @@ def nvidia_smi() -> str:
 
 
 def peaks(name: str):
-    """(bytes/s, float32 FLOP/s) of the card named `name`; an unknown card
-    is measured against the H100 SXM and says so."""
+    """(bytes/s, float32 FLOP/s, bf16 tensor FLOP/s, exponentials/s) of the
+    card named `name`; an unknown card is measured against the H100 SXM and
+    says so."""
     key = "H200" if "H200" in name else "H100"
     return key, _PEAKS[key]
 
@@ -222,10 +251,62 @@ def phase_kernels(dev, n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
     n_gather = check_gather(dev, n, h, w)
     n_poly = check_polylines(dev, image * 255.0,
                              {"fixture": fixture_d, "noise": noise_d})
-    log(f"phase 2 ok: warp, distance, gather ({n_gather} cases) and polylines "
-        f"({n_poly} cases) kernels agree with their plain versions")
+    del image, fixture_d, noise_d, masks
+    flash_err = check_flash(dev)
+    log(f"phase 2 ok: warp, distance, gather ({n_gather} cases), polylines "
+        f"({n_poly} cases) and flash attention ({len(FLASH_SHAPES)} shapes) "
+        "kernels agree with their plain versions")
     return {"warp_max_abs_err": warp_err, "distance_max_abs_err": 0.0,
-            "gather_max_abs_err": 0.0, "polylines_max_abs_err": 0.0}
+            "gather_max_abs_err": 0.0, "polylines_max_abs_err": 0.0,
+            "flash_max_abs_err": flash_err}
+
+
+def flash_inputs(dev, bh: int, nq: int, nk: int, d: int, seed: int = 0):
+    """q [bh, nq, d], k and v [bh, nk, d]: standard normal draws in bf16, as
+    the JAX package's own kernel tests draw them."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((bh, n, d), device=dev, generator=gen).to(torch.bfloat16)
+            for n in (nq, nk, nk)]
+
+
+def check_flash(dev) -> float:
+    """The flash kernel against `reference` (f32 logits and softmax, bf16
+    weights times v) at the UNet's shapes, atol 4e-3 on the bf16 outputs in
+    float32 (the JAX package's bound for its kernel against `_reference`);
+    a cross-attention shape (77 keys) is outside `supports` and must take
+    the bf16-logit form without a launch. Returns the level-0 max |err|."""
+    import torch
+    from comfystereo_tpu_torch.diffusion import attention
+    from comfystereo_tpu_torch.kernels import flash_attention as fa
+    errs = []
+    for bh, nq, nk, d in FLASH_SHAPES:
+        q, k, v = flash_inputs(dev, bh, nq, nk, d)
+        if not fa.supports(nq, nk, d, q.dtype):
+            raise AssertionError(f"supports({nq}, {nk}, {d}) is false")
+        before = fa.LAUNCHES
+        got = fa.flash_attention(q, k, v, d ** -0.5)
+        sync()
+        if fa.LAUNCHES != before + 1:
+            raise AssertionError("the flash kernel did not count its launch")
+        want = fa.reference(q, k, v, d ** -0.5)
+        err = float((got.float() - want.float()).abs().max())
+        if got.dtype != torch.bfloat16 or not bool(torch.isfinite(got).all()) or err > 4e-3:
+            raise AssertionError(f"flash kernel vs reference at {(bh, nq, nk, d)}: "
+                                 f"max |err| {err} > 4e-3")
+        errs.append(err)
+        log(f"  flash {(bh, nq, nk, d)}: max |err| {err:.3g} against reference")
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    q, k, v = (t.reshape(2, 8, -1, 40) for t in flash_inputs(dev, 16, 4096, 77, 40))
+    before = fa.LAUNCHES
+    out = attention.standard_attention(q, k, v, 40 ** -0.5)
+    sync()
+    if fa.supports(4096, 77, 40, q.dtype) or fa.LAUNCHES != before or \
+            not bool(torch.isfinite(out).all()):
+        raise AssertionError("cross-attention (77 keys) took the flash kernel")
+    log("  flash: cross-attention [2, 8, 4096 x 77, 40] is outside supports, no launch")
+    return errs[0]
 
 
 def gather_inputs(dev, n: int, h: int, w: int, seed: int = 0):
@@ -303,9 +384,10 @@ def check_polylines(dev, image255, depths) -> int:
     return count
 
 
-KERNEL_MODULES = ("warp_kernel", "distance", "gather", "polylines_exact")
+KERNEL_MODULES = ("warp_kernel", "distance", "gather", "polylines_exact", "flash_attention")
 KERNEL_NAMES = {"warp_kernel": "warp_rows", "distance": "edge_distances",
-                "gather": "bounded_take_along_w", "polylines_exact": "polylines_exact_rows"}
+                "gather": "bounded_take_along_w", "polylines_exact": "polylines_exact_rows",
+                "flash_attention": "flash_attention"}
 
 
 def reset_launches() -> None:
@@ -354,7 +436,7 @@ def phase_main_path(dev, n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
     sec = time.perf_counter() - t0
     launches = read_launches()
     want = {"warp_rows": 2, "edge_distances": 1, "bounded_take_along_w": 0,
-            "polylines_exact_rows": 0}
+            "polylines_exact_rows": 0, "flash_attention": 0}
     if launches != want:
         raise AssertionError(f"gpu_warp path launches {launches}, expected {want}")
     parallax = check_node_outputs(stereo, left_d, right_d, mask, (n, h, w), n, h, w)
@@ -386,7 +468,7 @@ def phase_main_path(dev, n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
     sec = time.perf_counter() - t0
     poly_launches = read_launches()
     want = {"warp_rows": 0, "edge_distances": 1, "bounded_take_along_w": 0,
-            "polylines_exact_rows": 2}
+            "polylines_exact_rows": 2, "flash_attention": 0}
     if poly_launches != want:
         raise AssertionError(f"polylines_sharp path launches {poly_launches}, "
                              f"expected {want}")
@@ -409,7 +491,7 @@ def phase_main_path(dev, n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
         sync()
         got = read_launches()
         fill_launches[fill] = got
-        if (got["edge_distances"] != 1 or got["warp_rows"] != 0
+        if (got["edge_distances"] != 1 or got["warp_rows"] != 0 or got["flash_attention"]
                 or (got["bounded_take_along_w"] > 0) != (fill in GATHER_FILLS)
                 or got["polylines_exact_rows"] != (2 if fill.startswith("poly")
                                                    or fill == "hybrid_edge_plus" else 0)):
@@ -501,13 +583,321 @@ def fill_diff(gpu_outs, cpu_outs):
     return n_off / n_all, worst
 
 
+# --- StereoDiffusion Fast path ---------------------------------------------
+
+def sd_fixture(size: int, frames: int = 1):
+    """`frames` fixture frames at size x size, each shifted sideways: image
+    [n, s, s, 3] and depth [n, s, s] as float32 numpy in [0, 1]."""
+    imgs, deps = fixture_frames(frames, size, size)
+    return imgs.astype("float32") / 255.0, deps.astype("float32") / 255.0
+
+
+@contextlib.contextmanager
+def attention_as(fn):
+    """Send the diffusion stack's kernel calls to `fn` for the time of the
+    block (`diffusion/attention.py` looks the kernel's wrapper up at each
+    call)."""
+    from comfystereo_tpu_torch.kernels import flash_attention as fa
+    kernel = fa.flash_attention
+    fa.flash_attention = fn
+    try:
+        yield
+    finally:
+        fa.flash_attention = kernel
+
+
+def exact_attention(q, k, v, scale: float):
+    """Softmax attention of bf16 inputs computed wholly in float32 and
+    rounded once to bf16: what the kernel and its plain version both
+    approximate."""
+    import torch
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    return torch.matmul(torch.softmax(s, dim=-1), v.float()).to(q.dtype)
+
+
+def rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+@contextlib.contextmanager
+def nan_guard_spy(seen: list):
+    """Record how many non-finite values each call of the pipeline's NaN
+    guard scrubs, so a run cannot pass by having its NaNs replaced."""
+    import torch
+    from comfystereo_tpu_torch.diffusion import sd_pipeline
+    guard = sd_pipeline._nan_guard
+
+    def spy(x):
+        seen.append(int((~torch.isfinite(x)).sum()))
+        return guard(x)
+
+    sd_pipeline._nan_guard = spy
+    try:
+        yield
+    finally:
+        sd_pipeline._nan_guard = guard
+
+
+def phase_diffusion(dev):
+    """The StereoDiffusion node in Fast mode, node defaults, on one 512x512
+    fixture frame, full-width SD 1.5-inpainting UNet + SD VAE in bf16 with
+    seeded random weights; then the kernel against its plain version inside
+    the model: one UNet CFG call, and the whole warp_inpaint."""
+    import numpy as np
+    import torch
+    from comfystereo_tpu_torch.diffusion import (SD15_INPAINT_UNET_CONFIG, SD_VAE_CONFIG,
+                                                 build_sd_model, schedulers, sd_pipeline)
+    from comfystereo_tpu_torch.kernels import flash_attention as fa
+    from comfystereo_tpu_torch.nodes.stereodiffusion import StereoDiffusionNode
+
+    t0 = time.perf_counter()
+    model = build_sd_model(SD15_INPAINT_UNET_CONFIG, SD_VAE_CONFIG, dtype=torch.bfloat16,
+                           seed=0, device=dev)
+    sync()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for m in (model.unet, model.vae) for p in m.parameters())
+    img, dep = sd_fixture(SD_SIZE)
+    seen = []
+    reset_launches()
+    t0 = time.perf_counter()
+    with nan_guard_spy(seen):
+        pair, left, right = StereoDiffusionNode().generate_stereo(img, dep, model=model,
+                                                                  device=dev)
+    node_s = time.perf_counter() - t0
+    launches = read_launches()
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = SD_UNET_CALLS * SD_FLASH_PER_CALL
+    if launches != want:
+        raise AssertionError(f"StereoDiffusion Fast launches {launches}, expected {want}")
+    s = SD_SIZE
+    if (tuple(pair.shape), tuple(left.shape), tuple(right.shape)) != (
+            (1, s, 2 * s, 3), (1, s, s, 3), (1, s, s, 3)):
+        raise AssertionError(f"node output shapes {tuple(pair.shape)}, {tuple(right.shape)}")
+    for t in (pair, left, right):
+        if not bool(torch.isfinite(t).all()) or float(t.min()) < 0 or float(t.max()) > 1:
+            raise AssertionError("node outputs not finite or outside [0, 1]")
+    if seen != [0]:
+        raise AssertionError(f"the NaN guard scrubbed {seen} non-finite values")
+    if not torch.equal(left, torch.from_numpy(img)):
+        raise AssertionError("left eye differs from the input")
+    img_d, dep_d = torch.from_numpy(img).to(dev), torch.from_numpy(dep).to(dev)
+    warped, mask = sd_pipeline.backward_warp_right(img_d, dep_d, 5.0)
+    prefilled = sd_pipeline.border_prefill(warped, mask).cpu()
+    keep = ~mask.cpu()
+    if not torch.equal(right[keep], prefilled[keep]):
+        raise AssertionError("right eye differs from the prefilled warp outside the mask")
+    changed = float((right - prefilled).abs()[~keep].mean())
+    log(f"phase 3 StereoDiffusion Fast: model {n_params / 1e6:.1f}M parameters (bf16) "
+        f"built in {build_s:.1f} s; node on 1 frame {s}x{s} in {node_s:.2f} s (first "
+        f"call), launches {launches}; mask share {float(mask.float().mean()):.4f}, "
+        f"mean |inpainted - prefill| inside the mask {changed:.4f}; left == input, "
+        "right == prefilled warp outside the mask")
+
+    # One bf16 UNet CFG call (batch 2, 64x64 latent, 9 channels) at the
+    # path's first timestep with the kernel, its plain version, and exact
+    # (f32) attention; and the whole warp_inpaint with the plain version.
+    gen = torch.Generator().manual_seed(0)
+    ls = s // 2 ** (len(model.vae.cfg.block_out_channels) - 1)
+    lat = torch.randn((2, model.unet_in_channels, ls, ls), generator=gen).to(dev)
+    ctx = torch.cat([model.text_encode("")] * 2, dim=0)
+    t_first = int(schedulers.pndm_skip_timesteps(schedulers.make_pndm(20), 0.6)[0])
+    kernel, calls = fa.flash_attention, []
+
+    def record(q, k, v, scale):
+        calls.append((q, k, v, scale))
+        return kernel(q, k, v, scale)
+
+    before = fa.LAUNCHES
+    with attention_as(record):
+        eps_k = model.unet_apply(lat, t_first, ctx)
+    with attention_as(fa.reference):
+        eps_p = model.unet_apply(lat, t_first, ctx)
+        plain_out = sd_pipeline.warp_inpaint(
+            model, img_d, dep_d, "", divergence=5.0, num_inference_steps=20, strength=0.6,
+            guidance_scale=3.0, seed=np.array([SD_SEED], np.uint64))
+    with attention_as(exact_attention):
+        eps_x = model.unet_apply(lat, t_first, ctx)
+    sync()
+    if fa.LAUNCHES != before + SD_FLASH_PER_CALL or len(calls) != SD_FLASH_PER_CALL:
+        raise AssertionError("the plain and exact runs launched the kernel")
+    # The bf16 rounding floor of this model: the same (bf16-valued) weights
+    # and inputs with every activation in float32.
+    unet32 = copy.deepcopy(model.unet).float()
+    eps_32 = unet32(lat, t_first, ctx.float())
+    del unet32
+    torch.cuda.empty_cache()
+    if not all(bool(torch.isfinite(e).all()) for e in (eps_k, eps_p, eps_x, eps_32)):
+        raise AssertionError("UNet eps not finite")
+    # Each of the call's 10 attentions on its own inputs: the kernel's and
+    # the plain version's distance from exact attention. Both round once per
+    # product (the kernel its unnormalised weights, the plain version its
+    # normalised ones) and once at the output, so the kernel may be no more
+    # than 1.5 times as far from exact as the plain version is.
+    per_call = []
+    for q, k, v, scale in calls:
+        x = exact_attention(q, k, v, scale)
+        per_call.append((rel_l2(kernel(q, k, v, scale), x),
+                         rel_l2(fa.reference(q, k, v, scale), x)))
+    del calls
+    bad = [(i, rk, rp) for i, (rk, rp) in enumerate(per_call) if rk > 1.5 * rp]
+    if bad:
+        raise AssertionError(f"kernel farther from exact attention than 1.5x the plain "
+                             f"version: {bad}")
+    # Through the whole network the rounding differences add up as noise of
+    # the same size for both, so eps may be at most twice as far from eps
+    # with exact attention.
+    rel, rel_k, rel_p = rel_l2(eps_k, eps_p), rel_l2(eps_k, eps_x), rel_l2(eps_p, eps_x)
+    floor = rel_l2(eps_p, eps_32)
+    if rel_k > 2.0 * rel_p:
+        raise AssertionError(f"UNet eps: kernel {rel_k} vs plain {rel_p} from exact attention")
+    img_diff = (plain_out.right.cpu() - right).abs()
+    log("  the UNet call's 10 attentions, relative L2 from exact (f32) attention, kernel / "
+        "plain: " + ", ".join(f"{rk:.3g}/{rp:.3g}" for rk, rp in per_call))
+    log(f"  UNet CFG call at t={t_first}: eps relative L2 kernel vs plain attention "
+        f"{rel:.4g}; from eps with exact attention: kernel {rel_k:.4g}, plain {rel_p:.4g}; "
+        f"bf16 (plain attention) vs the same weights in f32 {floor:.4g} (|eps| rms "
+        f"{float(eps_p.float().pow(2).mean().sqrt()):.3g}); warp_inpaint with plain "
+        f"attention vs the node's right eye: max |diff| {float(img_diff.max()):.4g}, mean "
+        f"{float(img_diff.mean()):.3g}")
+    log("phase 3 ok: StereoDiffusion Fast node through the flash kernel")
+    return {"model": model, "launches": launches, "eps_rel_l2": rel, "eps_bf16_floor": floor,
+            "eps_rel_exact": (rel_k, rel_p), "attention_rel_exact": per_call,
+            "image_max_diff": float(img_diff.max()), "node_s": node_s,
+            "lat": lat, "ctx": ctx, "t": t_first}
+
+
+def phase_diffusion_card_vs_cpu(dev, size: int = 64):
+    """warp_inpaint at the TINY configs in float32 (TF32 off) with the same
+    seeded weights and the same injected noise on the card and on the CPU:
+    the 9-channel inpainting form and the masked-latent form."""
+    import dataclasses
+    import torch
+    from comfystereo_tpu_torch.diffusion import (TINY_SD_UNET_CONFIG, TINY_SD_VAE_CONFIG,
+                                                 build_sd_model, schedulers, sd_pipeline)
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 must be off for the card-vs-CPU comparison")
+    img, dep = (torch.from_numpy(a) for a in sd_fixture(size, frames=2))
+    steps, strength = 6, 0.75
+    n = len(schedulers.pndm_skip_timesteps(schedulers.make_pndm(steps), strength))
+    f = 2 ** (len(TINY_SD_VAE_CONFIG.block_out_channels) - 1)
+    lat_shape = (TINY_SD_VAE_CONFIG.latent_channels, size // f, size // f)
+    cpu = torch.device("cpu")
+    for cfg in (dataclasses.replace(TINY_SD_UNET_CONFIG, in_channels=9), TINY_SD_UNET_CONFIG):
+        nine = cfg.in_channels == 9
+        noise = sd_pipeline.frame_noise([7, 8], lat_shape, 0 if nine else n, cpu)
+        outs, masks = [], []  # card, then CPU
+        for d in (dev, cpu):
+            m = build_sd_model(cfg, TINY_SD_VAE_CONFIG, seed=0, device=d)
+            outs.append(sd_pipeline.warp_inpaint(
+                m, img.to(d), dep.to(d), "a cat", divergence=8.0, num_inference_steps=steps,
+                strength=strength, guidance_scale=3.0,
+                noise=tuple(None if x is None else x.to(d) for x in noise)))
+            masks.append(sd_pipeline.backward_warp_right(img.to(d), dep.to(d), 8.0)[1].cpu())
+        if not torch.equal(masks[0], masks[1]):
+            raise AssertionError("disocclusion masks differ card vs CPU")
+        if not torch.equal(outs[0].left.cpu(), outs[1].left):
+            raise AssertionError("left eye differs card vs CPU")
+        err = float((outs[0].right.cpu() - outs[1].right).abs().max())
+        # float32 on both, sums in other orders (cuDNN vs the CPU's
+        # convolutions) through a 4-step loop on [0, 1] images.
+        if err > 1e-3:
+            raise AssertionError(f"warp_inpaint card vs CPU ({'9' if nine else '4'}-channel): "
+                                 f"max |err| {err} > 1e-3")
+        log(f"  card vs CPU warp_inpaint TINY {'9' if nine else '4'}-channel UNet, 2 frames "
+            f"{size}x{size}, {n} steps, f32: masks equal, left equal, right max |err| "
+            f"{err:.3g}")
+    log("phase 4 ok: warp_inpaint card vs CPU at the TINY configs")
+
+
+def flash_bound(bh: int, nq: int, nk: int, d: int, pk):
+    """(bound ms, 'bytes' or 'operations', what bounds it): the largest of
+    the q/k/v/out bytes at the memory rate, the 4*bh*nq*nk*d product
+    operations at the bf16 tensor rate, and the bh*nq*nk exponentials at the
+    special function units' rate."""
+    bw, _, tensor, exps = pk
+    times = {"bytes": 2.0 * bh * d * (2 * nq + 2 * nk) / bw * 1e3,
+             "tensor products": 4.0 * bh * nq * nk * d / tensor * 1e3,
+             "exponentials": float(bh) * nq * nk / exps * 1e3}
+    what = max(times, key=times.get)
+    return times[what], "bytes" if what == "bytes" else "operations", what
+
+
+def diffusion_times(dev, sd, launches: int, err: float, smi: str, name: str):
+    """The flash kernel beside its plain version, scaled_dot_product_attention
+    and its bound at each shape; the bf16 UNet CFG call, VAE encode and
+    decode, and warp_inpaint per frame with its device idle share."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from comfystereo_tpu_torch.diffusion import sd_pipeline
+    from comfystereo_tpu_torch.kernels import flash_attention as fa
+
+    key, pk = peaks(name)
+    rows = []
+    for bh, nq, nk, d in FLASH_SHAPES:
+        q, k, v = flash_inputs(dev, bh, nq, nk, d, seed=1)
+        scale = d ** -0.5
+        q4, k4, v4 = (t.reshape(2, bh // 2, -1, d) for t in (q, k, v))
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, scale), iters=20)
+        plain_ms = time_ms(lambda: fa.reference(q, k, v, scale), iters=3, warmup=1)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale),
+                         iters=20)
+        bound, by, what = flash_bound(bh, nq, nk, d, pk)
+        rows.append((ms, plain_ms, lib_ms, bound, by))
+        log(f"  flash_attention {(bh, nq, nk, d)}: {ms:.4f} ms/launch, bound {bound:.4f} ms "
+            f"({what}, {key} peaks; {100 * bound / ms:.1f}% of it reached), plain "
+            f"{plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms:.4f} ms [{smi}]")
+        del q, k, v, q4, k4, v4
+        torch.cuda.empty_cache()
+    ms, plain_ms, lib_ms, bound, by = rows[0]
+    entry = {"name": "flash_attention", "route": "cuda",
+             "source": "comfystereo_tpu_torch/csrc/flash_attention.cu",
+             "replaces": "comfystereo_tpu/pallas/flash_attention.py:164", "launches": launches,
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+             "bound_by": by, "library_ms": lib_ms}
+
+    model, s = sd["model"], SD_SIZE
+    unet_ms = time_ms(lambda: model.unet_apply(sd["lat"], sd["t"], sd["ctx"]), iters=5)
+    x = torch.rand((1, 3, s, s), device=dev) * 2 - 1
+    z = torch.randn((1, model.latent_channels) + tuple(sd["lat"].shape[-2:]), device=dev)
+    enc_ms = time_ms(lambda: model.vae_encode(x), iters=5)
+    dec_ms = time_ms(lambda: model.vae_decode(z), iters=5)
+    img, dep = (torch.from_numpy(a).to(dev) for a in sd_fixture(s))
+
+    def run():
+        return sd_pipeline.warp_inpaint(model, img, dep, "", divergence=5.0,
+                                        num_inference_steps=20, strength=0.6,
+                                        guidance_scale=3.0,
+                                        seed=np.array([SD_SEED], np.uint64))
+    run()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        run()
+    sync()
+    frame_ms = (time.perf_counter() - t0) / 2 * 1e3
+    calls, half = SD_UNET_CALLS, launches // 2  # half the launches at each level
+    log(f"  StereoDiffusion Fast {s}x{s} bf16 [{smi}]: UNet CFG call "
+        f"{tuple(sd['lat'].shape)} {unet_ms:.3f} ms; VAE encode {enc_ms:.3f} ms, decode "
+        f"{dec_ms:.3f} ms; warp_inpaint {frame_ms:.1f} ms/frame ({calls} UNet calls = "
+        f"{calls * unet_ms:.1f} ms, 2 encodes + 1 decode = {2 * enc_ms + dec_ms:.1f} ms, "
+        f"flash kernel {half} x {rows[0][0]:.4f} + {half} x {rows[1][0]:.4f} = "
+        f"{half * (rows[0][0] + rows[1][0]):.1f} ms)")
+    times = {"unet_cfg_ms": unet_ms, "vae_encode_ms": enc_ms, "vae_decode_ms": dec_ms,
+             "warp_inpaint_ms_per_frame": frame_ms,
+             "flash_ms": [r[0] for r in rows], "flash_plain_ms": [r[1] for r in rows],
+             "flash_sdpa_ms": [r[2] for r in rows], "flash_bound_ms": [r[3] for r in rows]}
+    times.update(idle_share("warp_inpaint", run, frame_ms, smi, iters=1))
+    return entry, times
+
+
 def phase_times(dev, launches, errs, smi: str, name: str,
                 n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
     import torch
     from comfystereo_tpu_torch import StereoConfig, stereo_pipeline
     from comfystereo_tpu_torch.kernels import distance, warp_kernel
 
-    key, (bw, flops) = peaks(name)
+    key, (bw, flops, _, _) = peaks(name)
     imgs, deps = fixture_frames(n, h, w)
     image = torch.from_numpy(imgs).to(dev).float() / 255.0
     depth255 = torch.from_numpy(deps).to(dev).float()
@@ -724,12 +1114,12 @@ def stage_times(image, depth01, cfg):
     }
 
 
-def idle_share(label: str, fn, chunk_ms: float, smi: str):
+def idle_share(label: str, fn, chunk_ms: float, smi: str, iters: int = 3):
     """Device busy time of `fn` (torch.profiler) against the event-timed time
     of the same profiled calls, the idle share 1 - busy/wall unclamped, and
     the six largest device items. The share is None, and said to be not
     measured, when the profiler saw no device time or more than the wall."""
-    busy_ms, wall_ms, top = device_busy(fn)
+    busy_ms, wall_ms, top = device_busy(fn, iters)
     idle = 1.0 - busy_ms / wall_ms
     why = f"{idle:.4f}"
     if busy_ms == 0.0:
@@ -793,8 +1183,15 @@ def main() -> int:
     smi, name = phase_device()
     errs = phase_kernels(dev)
     launches, _ = phase_main_path(dev)
+    sd = phase_diffusion(dev)
+    launches["flash_attention"] = sd["launches"]["flash_attention"]
     phase_card_vs_cpu(dev)
+    phase_diffusion_card_vs_cpu(dev)
     kernels, pipeline = phase_times(dev, launches, errs, smi, name)
+    flash, pipeline["stereodiffusion_fast"] = diffusion_times(
+        dev, sd, launches["flash_attention"], errs["flash_max_abs_err"], smi, name)
+    kernels.append(flash)
+    log(f"phase 5 ok: StereoDiffusion times on {name} ({smi})")
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -7,15 +7,18 @@ JAX package's layout so each module's counterpart is easy to find.
 Ported so far: the depth->stereo path through `stereo_pipeline`, the Stereo
 Image node and the video loop, with the directional depth blur and every
 fill technique: the default `gpu_warp` and the CPU-parity fills with the
-exact polylines renderer. Its four accelerator kernels are hand-written CUDA
-for Hopper (sm_90a) in `csrc/`: the forward warp (`kernels/warp_kernel.py`),
-the row edge-distance transform (`kernels/distance.py`), the bounded gather
-(`kernels/gather.py`) and the exact polylines scan
-(`kernels/polylines_exact.py`). Each wrapper runs its plain PyTorch version
-for CPU tensors.
+exact polylines renderer; and the StereoDiffusion node's Fast (Warp +
+Inpaint) mode on the SD UNet and VAE (`diffusion/`). Its five accelerator
+kernels are hand-written CUDA for Hopper (sm_90a) in `csrc/`: the forward
+warp (`kernels/warp_kernel.py`), the row edge-distance transform
+(`kernels/distance.py`), the bounded gather (`kernels/gather.py`), the exact
+polylines scan (`kernels/polylines_exact.py`) and the flash attention of the
+UNet's bf16 self-attentions (`kernels/flash_attention.py`). Each wrapper
+runs its plain PyTorch version for CPU tensors.
 
-Entry points (`StereoImageNode.generate`, `convert_video`, `device_chunk`)
-take `device=None`, which means CUDA; without a GPU they raise unless
+Entry points (`StereoImageNode.generate`, `convert_video`, `device_chunk`,
+`StereoDiffusionNode.generate_stereo`, `diffusion.build_sd_model`) take
+`device=None`, which means CUDA; without a GPU they raise unless
 `device="cpu"` is passed.
 """
 from __future__ import annotations

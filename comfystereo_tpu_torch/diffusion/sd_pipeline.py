@@ -1,0 +1,210 @@
+"""StereoDiffusion's Fast path: warp + inpaint.
+
+Port of part of `comfystereo_tpu/diffusion/sd_pipeline.py`: backward-warp
+the right eye, detect disocclusions (warped-depth comparison, 3x3 dilation,
+out-of-bounds), prefill the gaps by horizontal border interpolation,
+diffusion-inpaint the masked region with PNDM, and recomposite inside the
+mask only. The JAX package's scanned device program becomes a plain host
+loop over the timestep list; the frames of a batch run together.
+
+Random draws: one `torch.Generator` per frame, seeded `seed + frame_idx` by
+the node, drawn on the CPU so a seed gives the same noise on every device
+(the values are not `jax.random`'s). `diffusion_inpaint` and `warp_inpaint`
+take the noise as an argument too, so tests can feed the JAX package's.
+`text2stereo` (Standard mode) comes with a later slice.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops import depth as depth_ops
+from ..ops import scan as scan_ops
+from . import schedulers
+from .inversion import image_to_latent, latent_to_image
+from .models import DiffusionModel
+
+# (init_noise [B, C, h, w], step_noise [n, B, C, h, w] or None)
+Noise = Tuple[torch.Tensor, Optional[torch.Tensor]]
+
+
+class StereoResult(NamedTuple):
+    left: torch.Tensor     # [B, H, W, 3] float 0-1
+    right: torch.Tensor
+
+
+def _to_01(img_nchw: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(img_nchw.permute(0, 2, 3, 1) / 2.0 + 0.5, 0, 1)
+
+
+def _nan_guard(x: torch.Tensor) -> torch.Tensor:
+    """Scrub NaN/inf from decoded images, as the reference does."""
+    return torch.nan_to_num(x, nan=0.0, posinf=1.0, neginf=0.0)
+
+
+def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """[B, C, H', W'] -> [B, C, h, w], antialiased when it downsamples, as
+    `jax.image.resize(..., "bilinear")` is; the identity at the same size."""
+    if tuple(x.shape[-2:]) == (h, w):
+        return x
+    return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False,
+                         antialias=True)
+
+
+def backward_warp_right(image_nhwc: torch.Tensor, depth: torch.Tensor,
+                        divergence: float, exponent: float = 1.0,
+                        convergence: float = 0.5):
+    """Backward linear warp for the right eye plus the disocclusion mask:
+    warped-depth comparison (threshold 0.05), 3x3 max dilation, and
+    out-of-bounds union. image [B, H, W, C], depth [B, H, W]."""
+    b, h, w, c = image_nhwc.shape
+    nd = depth_ops.normalize_depth(depth)
+    off = depth_ops.pixel_offsets(nd, (divergence / 100.0) * w, 0.0, exponent,
+                                  convergence, prenormalized=True)
+    cols = torch.arange(w, dtype=torch.float32, device=image_nhwc.device)
+    src_x = cols + off                       # right eye samples at x + offset
+    oob = (src_x < 0) | (src_x > w - 1)
+    src_c = torch.clamp(src_x, 0.0, w - 1.0)
+    i0 = torch.floor(src_c).long()
+    i1 = torch.clamp(i0 + 1, max=w - 1)
+    fr = src_c - i0.float()
+
+    def take(t, idx):
+        return torch.gather(t, 2, idx)
+
+    i0c, i1c = (i[..., None].expand(b, h, w, c) for i in (i0, i1))
+    frc = fr[..., None]
+    warped = take(image_nhwc, i0c) * (1 - frc) + take(image_nhwc, i1c) * frc
+    nd_w = take(nd, i0) * (1 - fr) + take(nd, i1) * fr
+    disocc = (nd_w - nd) > 0.05
+    dilated = F.max_pool2d(disocc.float()[:, None], 3, stride=1, padding=1)[:, 0] > 0.5
+    return warped, dilated | oob
+
+
+def border_prefill(image_nhwc: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Horizontal border-interpolation prefill of masked pixels: each masked
+    pixel blends the nearest valid pixels to its left and right by distance."""
+    b, h, w, c = image_nhwc.shape
+    valid = ~mask
+    chans = image_nhwc.permute(3, 0, 1, 2)                   # [C, B, H, W]
+    valid_c = valid[None].expand(chans.shape)
+    (lv,), has_l = scan_ops.forward_fill((chans,), valid_c)
+    (rv,), has_r = scan_ops.backward_fill((chans,), valid_c)
+    has_l, has_r = has_l[0], has_r[0]
+    cols = torch.arange(w, dtype=torch.float32, device=image_nhwc.device)
+    ld = cols - scan_ops.nearest_true_left(valid).float()
+    rd = scan_ops.nearest_true_right(valid).float() - cols
+    t = ld / torch.clamp(ld + rd, min=1.0)
+    t = torch.where(~has_l, 1.0, t)
+    t = torch.where(~has_r, 0.0, t)
+    fill = lv * (1 - t) + rv * t
+    out = torch.where(mask[None], fill, chans)
+    return out.permute(1, 2, 3, 0)
+
+
+def frame_noise(seeds: Sequence[int], shape, n_steps: int, device) -> Noise:
+    """Per-frame noise chains: frame i draws its init noise, then (when
+    `n_steps` > 0) one draw per step, from a CPU generator seeded seeds[i]."""
+    inits, steps = [], []
+    for s in seeds:
+        gen = torch.Generator().manual_seed(int(s))
+        inits.append(torch.randn(shape, generator=gen))
+        steps.append([torch.randn(shape, generator=gen) for _ in range(n_steps)])
+    init = torch.stack(inits).to(device)
+    if not n_steps:
+        return init, None
+    return init, torch.stack([torch.stack(s) for s in zip(*steps)]).to(device)
+
+
+def _inpaint_loop(model: DiffusionModel, sched, ts: Sequence[int], nine_ch: bool,
+                  lat0, mask_lat, extra, ctx, init_noise, step_noise,
+                  guidance_scale: float) -> torch.Tensor:
+    """The PLMS inpainting loop over `ts` (host loop, all frames batched)."""
+    b = lat0.shape[0]
+    latents = schedulers.add_noise(sched, lat0, init_noise, ts[0])
+    ctx_b = ctx.repeat_interleave(b, dim=0)                  # [u x B | c x B]
+    ets = torch.zeros((4,) + tuple(lat0.shape), dtype=lat0.dtype, device=lat0.device)
+    cur = torch.zeros_like(lat0)
+    # The known content's noise level is the UPCOMING timestep (-1: clean).
+    ts_next = list(ts[1:]) + [-1]
+    for i, (t, t_next) in enumerate(zip(ts, ts_next)):
+        lat_in = torch.cat([latents] * 2, dim=0)
+        if nine_ch:  # [latents | mask | masked-image latents]
+            lat_in = torch.cat([lat_in, torch.cat([extra] * 2, dim=0)], dim=1)
+        eps = model.unet_apply(lat_in, t, ctx_b)
+        eps_u, eps_c = eps.chunk(2, dim=0)
+        eps = eps_u + guidance_scale * (eps_c - eps_u)
+        latents, ets, cur = schedulers.pndm_scan_step(sched, i, t, ets, cur, eps,
+                                                      latents)
+        if not nine_ch:
+            known = (schedulers.add_noise(sched, lat0, step_noise[i], t_next)
+                     if t_next >= 0 else lat0)
+            latents = torch.where(mask_lat, latents, known)
+    return latents
+
+
+def diffusion_inpaint(model: DiffusionModel, image_nchw: torch.Tensor,
+                      mask_nchw: torch.Tensor, prompt: str = "",
+                      num_inference_steps: int = 20, strength: float = 0.75,
+                      guidance_scale: float = 7.5,
+                      seed: Union[int, Sequence[int]] = 0,
+                      noise: Optional[Noise] = None) -> torch.Tensor:
+    """Inpainting with two model-dependent paths:
+
+    * 9-channel SD-inpainting UNets (`model.unet_in_channels == 2*C + 1`):
+      each step's UNet input is [latents | mask | masked-image latents];
+    * any other latent diffusion model: masked-latent blending, with the
+      known content re-imposed outside the mask at the upcoming noise level
+      after every step.
+
+    mask_nchw: [B,1,H,W], 1 = region to regenerate. seed: one int for every
+    frame or one per frame. `noise`: (init, steps) to use instead of the
+    seeded draws (steps only for the blending path). PNDM (PLMS) with its
+    strength-based step skipping. Returns the decoded [-1, 1] NCHW image.
+    """
+    sched = schedulers.make_pndm(num_inference_steps)
+    ctx = torch.cat([model.text_encode(""), model.text_encode(prompt)], dim=0)
+    nine_ch = model.unet_in_channels == 2 * model.latent_channels + 1
+
+    lat0 = image_to_latent(model, image_nchw)
+    lh, lw = lat0.shape[-2:]
+    mask_lat = resize_bilinear(mask_nchw, lh, lw) > 0.1
+    extra = None
+    if nine_ch:
+        # Masked-image latents: the known content with the hole zeroed out.
+        hole = resize_bilinear(mask_nchw, *image_nchw.shape[-2:]) > 0.5
+        masked_lat0 = image_to_latent(model, image_nchw * (1.0 - hole.to(image_nchw.dtype)))
+        extra = torch.cat([mask_lat.to(lat0.dtype), masked_lat0], dim=1)
+
+    ts = [int(t) for t in schedulers.pndm_skip_timesteps(sched, strength)]
+    if noise is None:
+        b = lat0.shape[0]
+        seeds = np.broadcast_to(np.asarray(seed, np.uint64), (b,))
+        noise = frame_noise(seeds, tuple(lat0.shape[1:]), 0 if nine_ch else len(ts),
+                            lat0.device)
+    latents = _inpaint_loop(model, sched, ts, nine_ch, lat0, mask_lat, extra, ctx,
+                            noise[0], noise[1], float(guidance_scale))
+    return latent_to_image(model, latents)
+
+
+def warp_inpaint(model: DiffusionModel, image_nhwc: torch.Tensor,
+                 depth: torch.Tensor, prompt: str = "",
+                 divergence: float = 5.0, num_inference_steps: int = 20,
+                 strength: float = 0.75, guidance_scale: float = 7.5,
+                 seed: Union[int, Sequence[int]] = 0,
+                 noise: Optional[Noise] = None) -> StereoResult:
+    """Fast path: warp the right eye, inpaint disocclusions, recomposite in
+    pixel space inside the mask only. image [B,H,W,C] in [0, 1], depth
+    [B,H,W]; `seed` is one int or one per frame."""
+    warped, mask = backward_warp_right(image_nhwc, depth, divergence)
+    prefilled = border_prefill(warped, mask)
+    img_nchw = prefilled.permute(0, 3, 1, 2) * 2.0 - 1.0
+    inpainted = diffusion_inpaint(
+        model, img_nchw, mask[:, None].float(), prompt, num_inference_steps,
+        strength, guidance_scale, seed, noise)
+    inpainted01 = _nan_guard(_to_01(inpainted))
+    right = torch.where(mask[..., None], inpainted01, prefilled)
+    return StereoResult(left=image_nhwc, right=right)

@@ -1,0 +1,418 @@
+"""Stable-Diffusion UNet (UNet2DConditionModel) in PyTorch.
+
+Port of `comfystereo_tpu/diffusion/sd_unet.py`. Parameter names follow the
+diffusers state-dict layout key for key (``down_blocks.0.resnets.1.conv1``),
+so the JAX package's flax tree carries across with
+`porting.state_dict_from_jax`. NCHW throughout; every self-attention goes
+through `bn_attention`, so the StereoDiffusion coupling applies with the
+`mode` and `stereo_active` values threaded through the layers.
+
+Numerics follow the flax modules under mixed precision: group and layer
+norms take their statistics in f32 (mean and E[x^2] - mean^2) and normalise
+in f32 before one rounding to the activation dtype; the timestep embedding
+MLP runs in f32 and is cast to the activation dtype afterwards; GELU is the
+exact (erf) form.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple, Union
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .attention import AttentionMode, bn_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class SDUNetConfig:
+    """SD-family UNet2DConditionModel hyperparameters (diffusers semantics:
+    `attention_head_dim` is the per-block head COUNT for SD1.x configs)."""
+
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    cross_attention_dim: int = 768
+    attention_head_dim: Union[int, Tuple[int, ...]] = 8
+    norm_num_groups: int = 32
+
+    def heads_for_block(self, i: int) -> int:
+        if isinstance(self.attention_head_dim, tuple):
+            return self.attention_head_dim[i]
+        return self.attention_head_dim
+
+
+# SD 1.x (runwayml/stable-diffusion-v1-5 unet/config.json)
+SD15_UNET_CONFIG = SDUNetConfig()
+# SD 1.5 inpainting: 9-channel input = latents + mask + masked-image latents
+SD15_INPAINT_UNET_CONFIG = SDUNetConfig(in_channels=9)
+# SD 2.x (stabilityai/stable-diffusion-2-1): 1024-d context, 64-d heads
+SD21_UNET_CONFIG = SDUNetConfig(cross_attention_dim=1024,
+                                attention_head_dim=(5, 10, 20, 20))
+# Tiny config exercising every block type (tests)
+TINY_SD_UNET_CONFIG = SDUNetConfig(block_out_channels=(32, 64),
+                                   layers_per_block=1, cross_attention_dim=64,
+                                   attention_head_dim=4, norm_num_groups=8)
+
+
+def _normalize(x: torch.Tensor, xg: torch.Tensor, groups_to_channels, weight,
+               bias, eps: float, shape) -> torch.Tensor:
+    """flax's `_compute_stats` + `_normalize`: statistics of `xg` (x in f32,
+    reduced over its last axis) as mean and max(E[x^2] - mean^2, 0), then
+    (x - mean) * (rsqrt(var + eps) * weight) + bias in f32, rounded once."""
+    mu = xg.mean(dim=-1)
+    var = torch.clamp((xg * xg).mean(dim=-1) - mu * mu, min=0.0)
+    mu, var = groups_to_channels(mu), groups_to_channels(var)
+    mul = torch.rsqrt(var + eps) * weight.float().reshape(shape)
+    y = (x.float() - mu) * mul + bias.float().reshape(shape)
+    return y.to(x.dtype)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over NCHW with flax's numerics (see `_normalize`)."""
+
+    def __init__(self, num_groups: int, channels: int, eps: float):
+        super().__init__()
+        self.num_groups, self.eps = num_groups, eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        b, c = x.shape[:2]
+        ones = (1,) * (x.dim() - 2)
+        per = c // self.num_groups
+
+        def to_channels(t):  # [B, G] -> [B, C, 1, 1]
+            return t.repeat_interleave(per, dim=1).reshape((b, c) + ones)
+
+        xg = x.float().reshape(b, self.num_groups, -1)
+        return _normalize(x, xg, to_channels, self.weight, self.bias,
+                          self.eps, (1, c) + ones)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis with flax's numerics."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        return _normalize(x, x.float(), lambda t: t[..., None], self.weight,
+                          self.bias, self.eps, (-1,))
+
+
+def sd_timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """diffusers get_timestep_embedding with flip_sin_to_cos=True,
+    downscale_freq_shift=0: [B] -> [B, dim] as [cos | sin], in f32."""
+    half = dim // 2
+    log10k = torch.log(torch.tensor(10000.0, dtype=torch.float32))
+    freqs = torch.exp(-log10k * torch.arange(half, dtype=torch.float32) / half)
+    args = t.float()[:, None] * freqs.to(t.device)[None, :]
+    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+class TimestepEmbedding(nn.Module):
+    """linear_1 -> silu -> linear_2, in f32 whatever the parameter dtype (as
+    flax promotes the f32 sinusoid with bf16 parameters)."""
+
+    def __init__(self, in_dim: int, dim: int):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, dim)
+        self.linear_2 = nn.Linear(dim, dim)
+
+    def forward(self, temb):
+        def dense(lin, x):
+            return F.linear(x, lin.weight.float(), lin.bias.float())
+        return dense(self.linear_2, F.silu(dense(self.linear_1, temb.float())))
+
+
+class CrossAttention(nn.Module):
+    """Q/K/V attention with the BN stereo coupling on self-attention."""
+
+    def __init__(self, query_dim: int, heads: int, dim_head: int,
+                 context_dim: Optional[int] = None):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads, self.dim_head = heads, dim_head
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(context_dim or query_dim, inner, bias=False)
+        self.to_v = nn.Linear(context_dim or query_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+
+    def forward(self, x, context, *, mode: AttentionMode, stereo_active: bool):
+        is_cross = context is not None
+        ctx = context if is_cross else x
+        b = x.shape[0]
+
+        def split(t):
+            return t.reshape(b, -1, self.heads, self.dim_head).transpose(1, 2)
+
+        out = bn_attention(split(self.to_q(x)), split(self.to_k(ctx)),
+                           split(self.to_v(ctx)), scale=self.dim_head ** -0.5,
+                           is_cross=is_cross, mode=mode, active=stereo_active)
+        out = out.transpose(1, 2).reshape(b, -1, self.heads * self.dim_head)
+        return self.to_out[0](out)
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, dim_out: int):
+        super().__init__()
+        self.proj = nn.Linear(dim, dim_out * 2)
+
+    def forward(self, x):
+        a, gate = self.proj(x).chunk(2, dim=-1)
+        return a * F.gelu(gate)
+
+
+class FeedForward(nn.Module):
+    """net.0 = GEGLU, net.2 = output Linear (diffusers indices)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.net = nn.ModuleList([GEGLU(dim, dim * 4), nn.Identity(),
+                                  nn.Linear(dim * 4, dim)])
+
+    def forward(self, x):
+        return self.net[2](self.net[0](x))
+
+
+class BasicTransformerBlock(nn.Module):
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int):
+        super().__init__()
+        self.norm1 = LayerNorm(dim)
+        self.attn1 = CrossAttention(dim, heads, dim_head)
+        self.norm2 = LayerNorm(dim)
+        self.attn2 = CrossAttention(dim, heads, dim_head, context_dim)
+        self.norm3 = LayerNorm(dim)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x, context, *, mode, stereo_active):
+        h = x + self.attn1(self.norm1(x), None, mode=mode,
+                           stereo_active=stereo_active)
+        h = h + self.attn2(self.norm2(h), context, mode=mode,
+                           stereo_active=stereo_active)
+        return h + self.ff(self.norm3(h))
+
+
+class Transformer2D(nn.Module):
+    """SD1.x spatial transformer (use_linear_projection=False: 1x1-conv
+    projections)."""
+
+    def __init__(self, channels: int, heads: int, context_dim: int,
+                 norm_groups: int, depth: int = 1):
+        super().__init__()
+        self.norm = GroupNorm(norm_groups, channels, 1e-6)
+        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.transformer_blocks = nn.ModuleList([
+            BasicTransformerBlock(channels, heads, channels // heads,
+                                  context_dim) for _ in range(depth)])
+        self.proj_out = nn.Conv2d(channels, channels, 1)
+
+    def forward(self, x, context, *, mode, stereo_active):
+        b, c, h, w = x.shape
+        y = self.proj_in(self.norm(x))
+        tokens = y.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        for blk in self.transformer_blocks:
+            tokens = blk(tokens, context, mode=mode, stereo_active=stereo_active)
+        y = tokens.reshape(b, h, w, c).permute(0, 3, 1, 2)
+        return self.proj_out(y) + x
+
+
+class ResnetBlock2D(nn.Module):
+    """GN -> silu -> conv1 (+ time_emb_proj(silu(temb))) -> GN -> silu ->
+    conv2, plus a 1x1 shortcut when the channel count changes."""
+
+    def __init__(self, in_ch: int, out_ch: int, norm_groups: int,
+                 temb_dim: Optional[int] = None, eps: float = 1e-5):
+        super().__init__()
+        self.norm1 = GroupNorm(norm_groups, in_ch, eps)
+        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+        if temb_dim is not None:
+            self.time_emb_proj = nn.Linear(temb_dim, out_ch)
+        self.norm2 = GroupNorm(norm_groups, out_ch, eps)
+        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+        if in_ch != out_ch:
+            self.conv_shortcut = nn.Conv2d(in_ch, out_ch, 1)
+
+    def forward(self, x, temb=None):
+        h = self.conv1(F.silu(self.norm1(x)))
+        if temb is not None and hasattr(self, "time_emb_proj"):
+            h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
+        h = self.conv2(F.silu(self.norm2(h)))
+        if hasattr(self, "conv_shortcut"):
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class Downsample2D(nn.Module):
+    """3x3 stride-2 conv; `pad` = (left, right, top, bottom): (1, 1, 1, 1) in
+    the UNet, (0, 1, 0, 1) in the VAE."""
+
+    def __init__(self, channels: int, pad=(1, 1, 1, 1)):
+        super().__init__()
+        self.pad = pad
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2)
+
+    def forward(self, x):
+        return self.conv(F.pad(x, self.pad))
+
+
+class Upsample2D(nn.Module):
+    """Nearest 2x, then a 3x3 conv."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+
+    def forward(self, x):
+        return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
+
+
+class _DownBlock(nn.Module):
+    """CrossAttnDownBlock2D / DownBlock2D (when has_attn=False)."""
+
+    def __init__(self, in_ch, out_ch, num_layers, heads, context_dim,
+                 norm_groups, temb_dim, has_attn, add_downsample):
+        super().__init__()
+        self.resnets = nn.ModuleList([
+            ResnetBlock2D(in_ch if i == 0 else out_ch, out_ch, norm_groups,
+                          temb_dim) for i in range(num_layers)])
+        if has_attn:
+            self.attentions = nn.ModuleList([
+                Transformer2D(out_ch, heads, context_dim, norm_groups)
+                for _ in range(num_layers)])
+        if add_downsample:
+            self.downsamplers = nn.ModuleList([Downsample2D(out_ch)])
+
+    def forward(self, x, temb, context, *, mode, stereo_active):
+        residuals = []
+        for i, res in enumerate(self.resnets):
+            x = res(x, temb)
+            if hasattr(self, "attentions"):
+                x = self.attentions[i](x, context, mode=mode,
+                                       stereo_active=stereo_active)
+            residuals.append(x)
+        if hasattr(self, "downsamplers"):
+            x = self.downsamplers[0](x)
+            residuals.append(x)
+        return x, residuals
+
+
+class _UpBlock(nn.Module):
+    """CrossAttnUpBlock2D / UpBlock2D (when has_attn=False)."""
+
+    def __init__(self, in_chs, out_ch, heads, context_dim, norm_groups,
+                 temb_dim, has_attn, add_upsample):
+        super().__init__()
+        self.resnets = nn.ModuleList([
+            ResnetBlock2D(ic, out_ch, norm_groups, temb_dim) for ic in in_chs])
+        if has_attn:
+            self.attentions = nn.ModuleList([
+                Transformer2D(out_ch, heads, context_dim, norm_groups)
+                for _ in in_chs])
+        if add_upsample:
+            self.upsamplers = nn.ModuleList([Upsample2D(out_ch)])
+
+    def forward(self, x, skips, temb, context, *, mode, stereo_active):
+        for i, res in enumerate(self.resnets):
+            x = res(torch.cat([x, skips.pop()], dim=1), temb)
+            if hasattr(self, "attentions"):
+                x = self.attentions[i](x, context, mode=mode,
+                                       stereo_active=stereo_active)
+        if hasattr(self, "upsamplers"):
+            x = self.upsamplers[0](x)
+        return x
+
+
+class _MidBlock(nn.Module):
+    def __init__(self, channels, heads, context_dim, norm_groups, temb_dim):
+        super().__init__()
+        self.resnets = nn.ModuleList([
+            ResnetBlock2D(channels, channels, norm_groups, temb_dim)
+            for _ in range(2)])
+        self.attentions = nn.ModuleList([
+            Transformer2D(channels, heads, context_dim, norm_groups)])
+
+    def forward(self, x, temb, context, *, mode, stereo_active):
+        x = self.resnets[0](x, temb)
+        x = self.attentions[0](x, context, mode=mode,
+                               stereo_active=stereo_active)
+        return self.resnets[1](x, temb)
+
+
+class SDUNet(nn.Module):
+    """UNet2DConditionModel-equivalent:
+    forward(latents [B,C,h,w], t, context [B,77,ctx]) -> eps [B,C,h,w].
+
+    SD1.x topology: cross-attention on every level except the deepest;
+    layers_per_block resnets down, layers_per_block+1 up; mid = resnet /
+    transformer / resnet.
+    """
+
+    def __init__(self, cfg: SDUNetConfig = SD15_UNET_CONFIG):
+        super().__init__()
+        self.cfg = cfg
+        chans = cfg.block_out_channels
+        n = len(chans)
+        temb_dim = chans[0] * 4
+        groups, ctx = cfg.norm_num_groups, cfg.cross_attention_dim
+        self.time_embedding = TimestepEmbedding(chans[0], temb_dim)
+        self.conv_in = nn.Conv2d(cfg.in_channels, chans[0], 3, padding=1)
+
+        skip_chs = [chans[0]]
+        self.down_blocks = nn.ModuleList()
+        in_ch = chans[0]
+        for i, ch in enumerate(chans):
+            last = i == n - 1
+            self.down_blocks.append(_DownBlock(
+                in_ch, ch, cfg.layers_per_block, cfg.heads_for_block(i), ctx,
+                groups, temb_dim, has_attn=not last, add_downsample=not last))
+            skip_chs.extend([ch] * (cfg.layers_per_block + (0 if last else 1)))
+            in_ch = ch
+
+        self.mid_block = _MidBlock(chans[-1], cfg.heads_for_block(n - 1), ctx,
+                                   groups, temb_dim)
+
+        self.up_blocks = nn.ModuleList()
+        x_ch = chans[-1]
+        for i in range(n):
+            j = n - 1 - i  # mirrored down-block index
+            in_chs = []
+            for _ in range(cfg.layers_per_block + 1):
+                in_chs.append(x_ch + skip_chs.pop())
+                x_ch = chans[j]
+            self.up_blocks.append(_UpBlock(
+                in_chs, chans[j], cfg.heads_for_block(j), ctx, groups,
+                temb_dim, has_attn=j < n - 1, add_upsample=j > 0))
+
+        self.conv_norm_out = GroupNorm(groups, chans[0], 1e-5)
+        self.conv_out = nn.Conv2d(chans[0], cfg.out_channels, 3, padding=1)
+
+    def forward(self, latents, t, context, *,
+                mode: AttentionMode = AttentionMode(),
+                stereo_active: bool = False):
+        t = torch.as_tensor(t, device=latents.device)
+        if t.dim() == 0:
+            t = t.expand(latents.shape[0])
+        temb = self.time_embedding(
+            sd_timestep_embedding(t, self.cfg.block_out_channels[0]))
+        # The sinusoid and MLP run in f32; cast down so the resnets' time
+        # projections run in the activation dtype.
+        temb = temb.to(latents.dtype)
+        kw = dict(mode=mode, stereo_active=stereo_active)
+
+        x = self.conv_in(latents)
+        skips = [x]
+        for blk in self.down_blocks:
+            x, res = blk(x, temb, context, **kw)
+            skips.extend(res)
+        x = self.mid_block(x, temb, context, **kw)
+        for blk in self.up_blocks:
+            x = blk(x, skips, temb, context, **kw)
+        return self.conv_out(F.silu(self.conv_norm_out(x)))
+

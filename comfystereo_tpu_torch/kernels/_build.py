@@ -53,6 +53,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "polylines_exact": {
         "cs_polylines_exact_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
+    "flash_attention": {
+        "cs_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -2,7 +2,7 @@
 
 The JAX package writes these as associative scans; in PyTorch they are
 `cummax`/`cummin` over marked column indices. Only the helpers the gpu_warp
-path and the fills use are here so far.
+path, the fills and the diffusion prefill use are here so far.
 """
 from __future__ import annotations
 
@@ -58,4 +58,19 @@ def forward_fill(values: Tuple[torch.Tensor, ...], valid: torch.Tensor):
     idx = nearest_true_left(valid)
     has = idx >= 0
     idx = idx.clamp(min=0)  # -1 -> 0: the row's first value
+    return tuple(v.gather(-1, idx) for v in values), has
+
+
+def backward_fill(values: Tuple[torch.Tensor, ...], valid: torch.Tensor):
+    """Propagate the next valid value leftward along the last axis.
+
+    values: tuple of tensors [..., W]; valid: bool [..., W].
+    Returns (filled_values, has_value). Positions after the last valid entry
+    hold the row's last value with has_value False, as the JAX package's
+    reversed associative scan carries there (the mirror of `forward_fill`).
+    """
+    w = valid.shape[-1]
+    idx = nearest_true_right(valid)
+    has = idx < w
+    idx = idx.clamp(max=w - 1)  # W -> W-1: the row's last value
     return tuple(v.gather(-1, idx) for v in values), has

@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from comfystereo_tpu_torch import FILL_TECHNIQUES, StereoConfig, stereo_pipeline
-from comfystereo_tpu_torch.kernels import distance, gather, polylines_exact, warp_kernel
+from comfystereo_tpu_torch.kernels import (distance, flash_attention, gather,
+                                           polylines_exact, warp_kernel)
 from comfystereo_tpu_torch.ops import depth as depth_ops
 from comfystereo_tpu_torch.utils import fixtures
 
@@ -152,3 +153,34 @@ def test_fill_pipeline_on_card_matches_cpu(dev, fill):
             assert float(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 0.01
         else:
             assert float(diff.max()) == 0.0
+
+
+@pytest.mark.parametrize("bh,nq,nk,d", [
+    (16, 4096, 4096, 40),   # SD 1.5 level-0 self-attention, CFG batch 2 x 8 heads
+    (16, 1024, 1024, 80),   # level 1
+    (4, 1024, 2048, 40),    # BN 'bi' stereo: kv = both views
+    (2, 1024, 1024, 64),
+    (2, 1152, 1024, 20),    # d not a multiple of 8: the scalar loads
+])
+def test_flash_kernel_matches_reference(dev, bh, nq, nk, d):
+    """bf16 outputs within 4e-3 of the plain version in f32 (JAX's own bound
+    for its kernel against `_reference`, tests/test_flash_attention.py)."""
+    rng = np.random.default_rng(bh * nq + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((bh, n, d), dtype=np.float32)).to(
+        dev, torch.bfloat16) for n in (nq, nk, nk))
+    assert flash_attention.supports(nq, nk, d, torch.bfloat16)
+    before = flash_attention.LAUNCHES
+    got = flash_attention.flash_attention(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = flash_attention.reference(q, k, v, d ** -0.5)
+    assert float((got.float() - want.float()).abs().max()) <= 4e-3
+
+
+def test_flash_kernel_rejects_unsupported_shapes(dev):
+    q = torch.zeros(2, 512, 40, device=dev, dtype=torch.bfloat16)
+    before = flash_attention.LAUNCHES
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(q, q, q, 0.1)
+    assert flash_attention.LAUNCHES == before

@@ -1,0 +1,162 @@
+"""Port's flash-attention wrapper and attention module vs the JAX package.
+
+On the CPU the wrapper runs its plain version (`reference`), which has the
+TPU kernel's numerics; it is held against JAX's `_reference` and against
+the Pallas kernel in interpret mode, at JAX's own bound (atol 4e-3 on bf16
+outputs, tests/test_flash_attention.py). `standard_attention` and
+`bn_attention` are held against the JAX functions on the CPU. Inputs are
+numpy draws from a seed, rounded to bf16 the same way on both sides.
+"""
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from comfystereo_tpu.diffusion import attention as jatt
+from comfystereo_tpu.pallas import flash_attention as jfa
+from comfystereo_tpu_torch.diffusion import attention as tatt
+from comfystereo_tpu_torch.kernels import flash_attention as tfa
+
+SHAPES = [(4, 1024, 1024, 40), (2, 1024, 2048, 40), (2, 1024, 1024, 80)]
+
+
+def _qkv(shape, seed, lead=()):
+    bh, nq, nk, d = shape
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(lead + (bh, n, d), dtype=np.float32)
+            for n in (nq, nk, nk)]
+
+
+def _both(arrays, dtype):
+    """numpy f32 -> (jax arrays, torch tensors) of `dtype` ('bfloat16' or
+    'float32'); both round to nearest even."""
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    td = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    return ([jnp.asarray(a, jd) for a in arrays],
+            [torch.from_numpy(a).to(td) for a in arrays])
+
+
+def _np(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+
+@pytest.fixture(scope="module")
+def jax_outputs():
+    """JAX's `_reference` and interpret-mode kernel for every shape, once."""
+    out = {}
+    for i, shape in enumerate(SHAPES):
+        (q, k, v), _ = _both(_qkv(shape, i), "bfloat16")
+        scale = shape[3] ** -0.5
+        out[shape] = (np.asarray(jfa._reference(q, k, v, scale), np.float32),
+                      np.asarray(jfa.flash_attention(q, k, v, scale, True), np.float32))
+    return out
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_version_matches_jax_reference_and_kernel(shape, jax_outputs):
+    i = SHAPES.index(shape)
+    _, (q, k, v) = _both(_qkv(shape, i), "bfloat16")
+    before = tfa.LAUNCHES
+    got = tfa.flash_attention(q, k, v, shape[3] ** -0.5)
+    assert tfa.LAUNCHES == before  # the CPU runs the plain version
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == tuple(q.shape)
+    want_ref, want_kernel = jax_outputs[shape]
+    np.testing.assert_allclose(_np(got), want_ref, rtol=0, atol=4e-3)
+    np.testing.assert_allclose(_np(got), want_kernel, rtol=0, atol=4e-3)
+
+
+def test_reference_bf16_matches_jax():
+    (jq, jk, jv), (q, k, v) = _both(_qkv((2, 256, 384, 40), 7), "bfloat16")
+    want = jfa._reference_bf16(jq, jk, jv, 40 ** -0.5)
+    got = tfa.reference_bf16(q, k, v, 40 ** -0.5)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=4e-3)
+
+
+GATING = [(1024, 1024, 40, "float32"), (512, 1024, 40, "bfloat16"),
+          (1024, 1000, 40, "bfloat16"), (1024, 1024, 160, "bfloat16"),
+          (1056, 1024, 40, "bfloat16"), (4096, 4096, 40, "bfloat16"),
+          (4096, 8192, 40, "bfloat16"), (1024, 77, 40, "bfloat16"),
+          (256, 256, 40, "bfloat16"), (1024, 1024, 80, "bfloat16"),
+          (4096, 65536, 128, "bfloat16"), (4096, 32768, 40, "bfloat16"),
+          (1152, 1024, 20, "bfloat16")]
+
+
+@pytest.mark.parametrize("nq,nk,d,dtype", GATING)
+def test_supports_and_pick_bq_match_jax(nq, nk, d, dtype):
+    tdt = getattr(torch, dtype)
+    jdt = getattr(jnp, dtype)
+    assert tfa.supports(nq, nk, d, tdt) == jfa.supports(nq, nk, d, jdt)
+    assert tfa._pick_bq(nq, nk, d) == jfa._pick_bq(nq, nk, d)
+
+
+def test_wrapper_raises_outside_supports():
+    q = torch.zeros(2, 512, 40, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q, q, q, 0.1)
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q.float(), q.float(), q.float(), 0.1)
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    ("float32", (2, 4, 256, 64, 40)),     # f32 logits (the torch-parity path)
+    ("float32", (1, 2, 1024, 1024, 8)),   # f32 never takes the kernel route
+    ("bfloat16", (2, 4, 256, 256, 40)),   # bf16, nq < 1024: bf16 logits
+    ("bfloat16", (2, 4, 1024, 77, 40)),   # bf16 cross-attention: nk % 128
+])
+def test_standard_attention_matches_jax(dtype, shape):
+    b, h, nq, nk, d = shape
+    arrays = _qkv((h, nq, nk, d), nq + nk + d, lead=(b,))
+    (jq, jk, jv), (q, k, v) = _both(arrays, dtype)
+    want = jatt.standard_attention(jq, jk, jv, d ** -0.5)
+    got = tatt.standard_attention(q, k, v, d ** -0.5)
+    assert got.dtype == q.dtype
+    # f32: one f32 matmul pair, summation order only; bf16: bf16 logits and
+    # outputs, so a few bf16 ulps of O(1) values.
+    atol = 1e-5 if dtype == "float32" else 1.6e-2
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=atol)
+
+
+def test_standard_attention_kernel_route_matches_jax_reference():
+    """A supported bf16 shape takes the kernel route: on the CPU its plain
+    version, the numerics of the JAX kernel (not of JAX's CPU fallback)."""
+    b, h, n, d = 2, 2, 1024, 40
+    (jq, jk, jv), (q, k, v) = _both(_qkv((h, n, n, d), 11, lead=(b,)), "bfloat16")
+    want = jfa._reference(jq.reshape(b * h, n, d), jk.reshape(b * h, n, d),
+                          jv.reshape(b * h, n, d), d ** -0.5).reshape(b, h, n, d)
+    got = tatt.standard_attention(q, k, v, d ** -0.5)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=4e-3)
+
+
+@pytest.mark.parametrize("direction", ["uni", "bi"])
+@pytest.mark.parametrize("use_cfg", [True, False])
+@pytest.mark.parametrize("active", [True, False])
+def test_bn_attention_matches_jax(direction, use_cfg, active):
+    b = 4 if use_cfg else 2
+    h, n, d = 2, 64, 16
+    arrays = _qkv((h, n, n, d), 3, lead=(b,))
+    (jq, jk, jv), (q, k, v) = _both(arrays, "float32")
+    mode_j = jatt.AttentionMode(stereo=True, direction=direction, use_cfg=use_cfg)
+    mode_t = tatt.AttentionMode(stereo=True, direction=direction, use_cfg=use_cfg)
+    want = jatt.bn_attention(jq, jk, jv, d ** -0.5, is_cross=False, mode=mode_j,
+                             active=jnp.asarray(active))
+    got = tatt.bn_attention(q, k, v, d ** -0.5, is_cross=False, mode=mode_t,
+                            active=active)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=1e-5)
+
+
+def test_bn_attention_cross_and_bf16_match_jax():
+    """Cross-attention stays standard under a stereo mode; a bf16 'bi' pair
+    outside the kernel gate uses bf16 logits on both sides."""
+    mode_j = jatt.AttentionMode(stereo=True, direction="bi")
+    mode_t = tatt.AttentionMode(stereo=True, direction="bi")
+    (jq, jk, jv), (q, k, v) = _both(_qkv((2, 64, 77, 16), 5, lead=(4,)), "float32")
+    want = jatt.bn_attention(jq, jk, jv, 0.25, is_cross=True, mode=mode_j, active=True)
+    got = tatt.bn_attention(q, k, v, 0.25, is_cross=True, mode=mode_t, active=True)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=1e-5)
+    (jq, jk, jv), (q, k, v) = _both(_qkv((2, 256, 256, 40), 6, lead=(4,)), "bfloat16")
+    want = jatt.bn_attention(jq, jk, jv, 40 ** -0.5, is_cross=False, mode=mode_j,
+                             active=True)
+    got = tatt.bn_attention(q, k, v, 40 ** -0.5, is_cross=False, mode=mode_t,
+                            active=True)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=1.6e-2)

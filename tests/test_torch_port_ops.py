@@ -112,6 +112,17 @@ def test_forward_fill_bit_equal():
     _eq(jh, th)
 
 
+def test_backward_fill_bit_equal():
+    """Including the positions after a row's last valid entry, which take
+    the row's last value in both packages."""
+    m = _masks()
+    a = np.random.default_rng(10).normal(size=m.shape).astype(np.float32)
+    (ja,), jh = jscan.backward_fill((jnp.asarray(a),), jnp.asarray(m))
+    (ta,), th = tscan.backward_fill((torch.from_numpy(a),), torch.from_numpy(m))
+    _eq(ja, ta)
+    _eq(jh, th)
+
+
 @pytest.mark.parametrize("mode", MODES)
 def test_pack_mode_bit_equal(mode):
     rng = np.random.default_rng(9)

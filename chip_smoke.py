@@ -7,7 +7,7 @@ Runs from the repository root (it imports `comfystereo_tpu_torch` from
 beside itself; it never imports JAX or `comfystereo_tpu`). Phases, in order;
 any failure ends the run with a non-zero exit code:
 
-1. device: the card's name and power limit; build all five kernels with
+1. device: the card's name and power limit; build all six kernels with
    nvcc (sm_90a, one nvcc per source, all started together);
 2. kernels vs their plain PyTorch versions on the card, at the main path's
    shapes (12 frames of 1080x1920 as [12*1080, 1920] rows): the warp on the
@@ -18,7 +18,10 @@ any failure ends the run with a non-zero exit code:
    fills' shapes, int32 keys and a [B,1,H,W] index plane over [B,3,H,W]
    colour (bit-equal); the exact polylines against its plain version on
    the same 12 frames, sharp and soft, divergence +-4.5% with separation 0
-   and 1%, fixture and noise depth (bit-equal); the flash attention against
+   and 1%, fixture and noise depth (bit-equal); the supersampled polylines
+   kernel against its plain version on the same 12 frames, sharp and soft,
+   divergence +4.5% with separation 0 and -4.5% with 1%, fixture and noise
+   depth (colour sums bit-equal); the flash attention against
    its plain version (`reference`) at the SD 1.5 UNet's bf16 self-attention
    shapes, [BH, Nq, Nk, D] = [16, 4096, 4096, 40] (level 0, CFG batch 2 x 8
    heads), [16, 1024, 1024, 80] (level 1) and [16, 4096, 8192, 40] (BN 'bi'),
@@ -30,22 +33,31 @@ any failure ends the run with a non-zero exit code:
    batch_size=12: warp 2, distance 1), then device_chunk on the same frames
    as uint8 BGR; the node with "Fill - Polylines Sharp" (polylines 2,
    distance 1, warp 0); stereo_pipeline once for each other fill at 1080p
-   B=12 (gather launches printed; every gather fill must launch it); the
+   B=12 (gather launches printed; every gather fill must launch it); with
+   polylines_exact=False, stereo_pipeline for polylines_sharp,
+   polylines_soft and hybrid_edge_plus (supersampled polylines 2, exact
+   polylines 0, distance 1, gather only for hybrid_edge_plus; uint8-valued
+   outputs) and device_chunk for polylines_sharp; the
    StereoDiffusion node in Fast (Warp + Inpaint) mode with its defaults on
    one 512x512 fixture frame, on the full-width SD 1.5-inpainting UNet and
    SD VAE in bfloat16 with seeded random weights (flash attention 130:
    13 UNet calls x 10 self-attentions), then one UNet CFG call and the
    whole warp_inpaint with the attention forced to its plain version;
 4. card vs CPU: the port's stereo_pipeline on 2 frames of 270x480 on the card
-   and on the CPU, gpu_warp and all ten fills, to the slice's tolerances;
+   and on the CPU, gpu_warp and all ten fills, to the slice's tolerances,
+   and the three supersampled fills (the kernel route on the card, the twin
+   on the CPU) to the JAX package's kernel-vs-twin bound; the kernel route
+   against the twin on the card at 1080p B=12, sharp to that bound, soft to
+   a wider one (see `check_routes_1080p`);
    warp_inpaint at the TINY UNet (9- and 4-channel) and VAE configs in
    float32 with the same injected noise on the card and on the CPU;
 5. times with CUDA events (warm-up, then >= 10 iterations, fewer for the
    slowest plain versions): each kernel and its plain version at the main
    path's shapes beside the bound (and torch.gather beside the gather), the
    gpu_warp pipeline's ms/frame and fps at 1080p, batch 12, in float32 and
-   bfloat16, and the fills' ms/frame at the same size, with stage breakdowns
-   and device idle shares for gpu_warp and polylines_sharp; the flash kernel,
+   bfloat16, and the fills' ms/frame at the same size (the three supersampled
+   ones too), with stage breakdowns and device idle shares for gpu_warp and
+   polylines_sharp, exact and supersampled; the flash kernel,
    its plain version and `scaled_dot_product_attention` (a yardstick the
    port never calls) at the three shapes, the bf16 UNet CFG call, VAE
    encode and decode, and warp_inpaint per frame with its idle share.
@@ -71,6 +83,9 @@ FILLS = ("none", "naive", "naive_interpolating", "none_post", "inverse",
          "inverse_post", "hybrid_edge", "hybrid_edge_plus", "polylines_soft",
          "polylines_sharp")
 GATHER_FILLS = FILLS[:8]
+# The fills that take the supersampled polylines renderer with
+# polylines_exact=False.
+LEGACY_FILLS = ("polylines_sharp", "polylines_soft", "hybrid_edge_plus")
 # Largest share of uint8 values in which the hybrid fills may differ (by 1)
 # card vs CPU in phase 4: the 29% measured there, with room to spare.
 HYBRID_SHARE = 0.35
@@ -251,14 +266,15 @@ def phase_kernels(dev, n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
     n_gather = check_gather(dev, n, h, w)
     n_poly = check_polylines(dev, image * 255.0,
                              {"fixture": fixture_d, "noise": noise_d})
+    n_ss = check_polylines_ss(image * 255.0, {"fixture": fixture_d, "noise": noise_d})
     del image, fixture_d, noise_d, masks
     flash_err = check_flash(dev)
     log(f"phase 2 ok: warp, distance, gather ({n_gather} cases), polylines "
-        f"({n_poly} cases) and flash attention ({len(FLASH_SHAPES)} shapes) "
-        "kernels agree with their plain versions")
+        f"({n_poly} cases), supersampled polylines ({n_ss} cases) and flash "
+        f"attention ({len(FLASH_SHAPES)} shapes) kernels agree with their plain versions")
     return {"warp_max_abs_err": warp_err, "distance_max_abs_err": 0.0,
             "gather_max_abs_err": 0.0, "polylines_max_abs_err": 0.0,
-            "flash_max_abs_err": flash_err}
+            "polylines_ss_max_abs_err": 0.0, "flash_max_abs_err": flash_err}
 
 
 def flash_inputs(dev, bh: int, nq: int, nk: int, d: int, seed: int = 0):
@@ -343,8 +359,9 @@ def check_gather(dev, n: int, h: int, w: int) -> int:
 
 
 def polylines_inputs(image255, depth255, div_pct: float, sep_pct: float):
-    """The polylines kernel's row arguments, computed as
-    ops/polylines_exact.apply_polylines_exact computes them."""
+    """The polylines kernels' row arguments, computed as ops/polylines_exact
+    and ops/polylines compute them: (x, signed coord, colours, max_disp);
+    the exact kernel takes |coord|."""
     import math
     import torch
     from comfystereo_tpu_torch.ops import depth as depth_ops
@@ -354,7 +371,7 @@ def polylines_inputs(image255, depth255, div_pct: float, sep_pct: float):
     coord = depth_ops.signed_power(nd, 2.0) * div_px
     x = torch.arange(w, dtype=torch.float32, device=coord.device) + 0.5 + coord + sep_px
     max_disp = int(math.ceil(abs(div_px) + abs(sep_px))) + 4
-    return (x.reshape(b * h, w).contiguous(), coord.abs().reshape(b * h, w).contiguous(),
+    return (x.reshape(b * h, w).contiguous(), coord.reshape(b * h, w).contiguous(),
             torch.trunc(image255).reshape(b * h, w, c).contiguous(), max_disp)
 
 
@@ -366,8 +383,9 @@ def check_polylines(dev, image255, depths) -> int:
         for sharp in (True, False):
             for sep in SEP_PCTS:
                 for sign in (1.0, -1.0):
-                    x, cl, colors, max_disp = polylines_inputs(
+                    x, coord, colors, max_disp = polylines_inputs(
                         image255, d, sign * DIV_PCT, sign * sep + 0.0)
+                    cl = coord.abs()
                     got = pk.polylines_exact_rows(x, cl, colors, sharp=sharp,
                                                   max_pieces=12, max_disp=max_disp)
                     sync()
@@ -384,10 +402,40 @@ def check_polylines(dev, image255, depths) -> int:
     return count
 
 
-KERNEL_MODULES = ("warp_kernel", "distance", "gather", "polylines_exact", "flash_attention")
+def check_polylines_ss(image255, depths) -> int:
+    """The supersampled polylines kernel against its plain version: colour
+    sums bit-equal (S = 8, K = 4)."""
+    import torch
+    from comfystereo_tpu_torch.kernels import polylines as pk
+    count = 0
+    for kind, d in depths.items():
+        for sharp in (True, False):
+            for div, sep in ((DIV_PCT, 0.0), (-DIV_PCT, 1.0)):
+                x, coord, colors, max_disp = polylines_inputs(image255, d, div, sep)
+                kw = dict(sharp=sharp, samples=8, k_candidates=4, max_disp=max_disp)
+                got = pk.polylines_scanline(x, coord, colors, **kw)
+                sync()
+                want = pk.polylines_scanline_plain(x, coord, colors, **kw)
+                sync()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"supersampled polylines kernel differs from plain ({kind}, sharp "
+                        f"{sharp}, div {div}%, sep {sep}%): max |err| "
+                        f"{float((got - want).abs().max())} on "
+                        f"{float((got != want).float().mean()):.6f} of sums")
+                count += 1
+                del got, want
+        log(f"  supersampled polylines {kind}: sums bit-equal to plain on "
+            f"{tuple(x.shape)} rows, sharp and soft, div +4.5% sep 0 and -4.5% sep 1%")
+    torch.cuda.empty_cache()
+    return count
+
+
+KERNEL_MODULES = ("warp_kernel", "distance", "gather", "polylines_exact", "polylines",
+                  "flash_attention")
 KERNEL_NAMES = {"warp_kernel": "warp_rows", "distance": "edge_distances",
                 "gather": "bounded_take_along_w", "polylines_exact": "polylines_exact_rows",
-                "flash_attention": "flash_attention"}
+                "polylines": "polylines_scanline", "flash_attention": "flash_attention"}
 
 
 def reset_launches() -> None:
@@ -436,7 +484,7 @@ def phase_main_path(dev, n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
     sec = time.perf_counter() - t0
     launches = read_launches()
     want = {"warp_rows": 2, "edge_distances": 1, "bounded_take_along_w": 0,
-            "polylines_exact_rows": 0, "flash_attention": 0}
+            "polylines_exact_rows": 0, "polylines_scanline": 0, "flash_attention": 0}
     if launches != want:
         raise AssertionError(f"gpu_warp path launches {launches}, expected {want}")
     parallax = check_node_outputs(stereo, left_d, right_d, mask, (n, h, w), n, h, w)
@@ -468,7 +516,7 @@ def phase_main_path(dev, n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
     sec = time.perf_counter() - t0
     poly_launches = read_launches()
     want = {"warp_rows": 0, "edge_distances": 1, "bounded_take_along_w": 0,
-            "polylines_exact_rows": 2, "flash_attention": 0}
+            "polylines_exact_rows": 2, "polylines_scanline": 0, "flash_attention": 0}
     if poly_launches != want:
         raise AssertionError(f"polylines_sharp path launches {poly_launches}, "
                              f"expected {want}")
@@ -492,6 +540,7 @@ def phase_main_path(dev, n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
         got = read_launches()
         fill_launches[fill] = got
         if (got["edge_distances"] != 1 or got["warp_rows"] != 0 or got["flash_attention"]
+                or got["polylines_scanline"]
                 or (got["bounded_take_along_w"] > 0) != (fill in GATHER_FILLS)
                 or got["polylines_exact_rows"] != (2 if fill.startswith("poly")
                                                    or fill == "hybrid_edge_plus" else 0)):
@@ -502,11 +551,58 @@ def phase_main_path(dev, n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
         log(f"  stereo_pipeline {fill} 1080p B={n}: launches gather "
             f"{got['bounded_take_along_w']}, polylines {got['polylines_exact_rows']}, "
             f"distance {got['edge_distances']}, black share {float(res['mask'].mean()):.5f}")
-    log("phase 3 ok: gpu_warp and polylines_sharp node paths and every fill "
-        "through their kernels")
+    ss_launches = phase_main_path_supersampled(dev, img_d, dep_d, bgr, dep_bgr)
+    log("phase 3 ok: gpu_warp and polylines_sharp node paths and every fill, exact "
+        "and supersampled, through their kernels")
     launches["polylines_exact_rows"] = poly_launches["polylines_exact_rows"]
     launches["bounded_take_along_w"] = fill_launches["none"]["bounded_take_along_w"]
+    launches["polylines_scanline"] = ss_launches["polylines_sharp"]["polylines_scanline"]
     return launches, fill_launches
+
+
+def phase_main_path_supersampled(dev, img_d, dep_d, bgr, dep_bgr):
+    """The fills that reach the supersampled polylines renderer, with
+    polylines_exact=False: stereo_pipeline on card tensors, then
+    device_chunk (the video loop's chunk program) for polylines_sharp."""
+    import torch
+    from comfystereo_tpu_torch import StereoConfig, stereo_pipeline
+    from comfystereo_tpu_torch.utils.video import device_chunk
+    n, h, w = dep_d.shape
+    out = {}
+    for fill in LEGACY_FILLS:
+        cfg = StereoConfig(fill_technique=fill, polylines_exact=False)
+        reset_launches()
+        res = stereo_pipeline(img_d, dep_d, cfg)
+        sync()
+        got = read_launches()
+        out[fill] = got
+        if (got["polylines_scanline"] != 2 or got["polylines_exact_rows"] != 0
+                or got["edge_distances"] != 1 or got["warp_rows"] != 0 or got["flash_attention"]
+                or (got["bounded_take_along_w"] > 0) != (fill == "hybrid_edge_plus")):
+            raise AssertionError(f"{fill} (polylines_exact=False) launches {got}")
+        o = res["stereo"][0]
+        if tuple(o.shape) != (n, h, 2 * w, 3) or not bool(torch.isfinite(o).all()):
+            raise AssertionError(f"{fill} (supersampled) output {tuple(o.shape)} not finite")
+        q = o * 255.0
+        if float((q - torch.round(q)).abs().max()) > 1e-3 or float(q.min()) < 0 \
+                or float(q.max()) > 255:
+            raise AssertionError(f"{fill} (supersampled) output is not uint8-valued")
+        log(f"  stereo_pipeline {fill} polylines_exact=False 1080p B={n}: launches "
+            f"supersampled polylines {got['polylines_scanline']}, exact polylines "
+            f"{got['polylines_exact_rows']}, gather {got['bounded_take_along_w']}, distance "
+            f"{got['edge_distances']}, black share {float(res['mask'].mean()):.5f}")
+    cfg = StereoConfig(batch_size=n, fill_technique="polylines_sharp", polylines_exact=False)
+    reset_launches()
+    chunk = device_chunk(bgr, dep_bgr, cfg, device=dev)
+    sync()
+    got = read_launches()
+    if got["polylines_scanline"] != 2 or got["polylines_exact_rows"] != 0:
+        raise AssertionError(f"device_chunk polylines_sharp (supersampled) launches {got}")
+    if chunk.dtype != torch.uint8 or tuple(chunk.shape) != (n, h, 2 * w, 3):
+        raise AssertionError(f"device_chunk gave {chunk.dtype} {tuple(chunk.shape)}")
+    log(f"  device_chunk polylines_sharp polylines_exact=False: uint8 BGR "
+        f"{tuple(chunk.shape)}, launches {got}")
+    return out
 
 
 def phase_card_vs_cpu(dev, n: int = 2, h: int = 270, w: int = 480):
@@ -566,8 +662,82 @@ def phase_card_vs_cpu(dev, n: int = 2, h: int = 270, w: int = 480):
                                      f"values differ, max {worst} LSB, mask {mask_off:.6f}")
             log(f"  card vs CPU {fill} blur={blur}: {off:.6f} of uint8 values differ "
                 f"(max {worst:g} LSB), mask mismatch {mask_off:.6f}")
+    for fill in LEGACY_FILLS:
+        for blur in (False, True):
+            cfg = StereoConfig(modes=modes, depth_map_blur=blur, fill_technique=fill,
+                               polylines_exact=False)
+            gpu = stereo_pipeline(image.to(dev), depth.to(dev), cfg)
+            cpu = stereo_pipeline(image, depth, cfg)
+            mask_off = float((gpu["mask"].cpu() != cpu["mask"]).float().mean())
+            mean_err, over1, off = route_diff(gpu["stereo"], cpu["stereo"])
+            # The card takes the kernel route, the CPU the twin: the JAX
+            # package's bound for its kernel against its twin (mean |err| <
+            # 0.05, < 0.1% of values off by more than 1 LSB); hybrid_edge_plus
+            # adds the hybrid base's card-vs-CPU share (HYBRID_SHARE, 1 LSB).
+            if fill == "hybrid_edge_plus":
+                ok = over1 < 0.001 and off <= HYBRID_SHARE and mask_off <= 0.001
+            else:
+                ok = mean_err < 0.05 and over1 < 0.001 and mask_off <= 0.001
+            if not ok:
+                raise AssertionError(f"{fill} supersampled card vs CPU (blur {blur}): mean "
+                                     f"|err| {mean_err:.5f}, {over1:.6f} of values > 1 LSB, "
+                                     f"{off:.6f} differ, mask {mask_off:.6f}")
+            log(f"  card (kernel) vs CPU (twin) {fill} polylines_exact=False blur={blur}: "
+                f"mean |err| {mean_err:.5f}, > 1 LSB {over1:.6f}, differing {off:.6f}, mask "
+                f"mismatch {mask_off:.6f}")
+    check_routes_1080p(dev)
     log(f"phase 4 ok: stereo_pipeline card vs CPU on {n} frames {w}x{h}, gpu_warp "
-        f"and {len(FILLS)} fills")
+        f"and {len(FILLS)} fills, {len(LEGACY_FILLS)} supersampled; kernel route vs "
+        "twin at 1080p")
+
+
+def route_diff(gpu_outs, cpu_outs):
+    """(mean |err|, share of values more than 1 LSB apart, share that differ)
+    over all packed outputs of the uint8 branch."""
+    import torch
+    total, n_over, n_off, n_all = 0.0, 0, 0, 0
+    for g, c in zip(gpu_outs, cpu_outs):
+        d = (torch.round(g.cpu() * 255.0) - torch.round(c * 255.0)).abs()
+        total += float(d.sum())
+        n_over += int((d > 1).sum())
+        n_off += int((d > 0).sum())
+        n_all += d.numel()
+    return total / n_all, n_over / n_all, n_off / n_all
+
+
+def check_routes_1080p(dev, n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
+    """apply_polylines' kernel route against its twin, both on the card, on
+    the left eye of 12 frames at 1080p. Sharp: the JAX package's bound (mean
+    |err| < 0.05, < 0.1% of values off by more than 1 LSB). Soft: mean |err|
+    < 0.5, < 2% of values off by more than 1 LSB. At 1080p the fixture's flat
+    depth gives offsets on the 1/8 sample grid (-8.4375 px at divergence
+    4.5%), where a sample lies exactly on a point and neither group covers
+    it: the kernel then takes a found group's left colour (its `neither`
+    fallback), the twin the positive group's, black where that group found
+    nothing, so whole rows come out 1/8 darker in the twin. JAX's own kernel
+    and twin differ so on such rows (tests/test_torch_port_polylines.py)."""
+    import torch
+    from comfystereo_tpu_torch.ops import depth as depth_ops
+    from comfystereo_tpu_torch.ops import polylines
+    imgs, deps = fixture_frames(n, h, w)
+    image = torch.from_numpy(imgs).to(dev).float()
+    nd = depth_ops.normalize_depth(torch.from_numpy(deps).to(dev).float()) - 0.5
+    for sharp in (True, False):
+        outs = [polylines.apply_polylines(image, nd, DIV_PCT / 100.0 * w, 0.0, 2.0,
+                                          sharp=sharp, impl=impl)
+                for impl in ("kernel", "twin")]
+        err = (outs[0] - outs[1]).abs()
+        mean_err, over1 = float(err.mean()), float((err > 1).float().mean())
+        if not (mean_err < 0.05 and over1 < 0.001 if sharp else
+                mean_err < 0.5 and over1 < 0.02):
+            raise AssertionError(f"kernel route vs twin at 1080p (sharp {sharp}): mean |err| "
+                                 f"{mean_err}, {over1} of values > 1 LSB")
+        log(f"  kernel route vs twin on the card, {n} frames {w}x{h}, sharp {sharp}: mean "
+            f"|err| {mean_err:.6f}, > 1 LSB {over1:.7f}, differing "
+            f"{float((err > 0).float().mean()):.6f}, mean kernel - twin "
+            f"{float((outs[0] - outs[1]).mean()):.6f}")
+        del outs, err
+    torch.cuda.empty_cache()
 
 
 def fill_diff(gpu_outs, cpu_outs):
@@ -919,6 +1089,7 @@ def phase_times(dev, launches, errs, smi: str, name: str,
 
     gather_t = gather_times(dev, n, h, w)
     poly_t = polylines_times(image * 255.0, depth255)
+    ss_t = polylines_ss_times(image * 255.0, depth255)
 
     def entry(kname, source, replaces, ms, plain_ms, nbytes, ops, err, library_ms=None):
         t_bytes, t_ops = nbytes / bw * 1e3, ops / flops * 1e3
@@ -944,6 +1115,10 @@ def phase_times(dev, launches, errs, smi: str, name: str,
               "comfystereo_tpu/pallas/polylines_exact_kernel.py:630", poly_t["ms"],
               poly_t["plain_ms"], poly_t["bytes"], poly_t["ops"],
               errs["polylines_max_abs_err"]),
+        entry("polylines_scanline", "comfystereo_tpu_torch/csrc/polylines.cu",
+              "comfystereo_tpu/pallas/polylines_kernel.py:281", ss_t["ms"],
+              ss_t["plain_ms"], ss_t["bytes"], ss_t["ops"],
+              errs["polylines_ss_max_abs_err"]),
     ]
     for k in kernels:
         lib = "" if k["library_ms"] is None else f", library {k['library_ms']:.4f} ms"
@@ -957,6 +1132,9 @@ def phase_times(dev, launches, errs, smi: str, name: str,
         f"pixel {poly_t['pieces_per_px']:.3f}, window {poly_t['window_mean']:.1f} "
         f"columns per row, active candidates per piece {poly_t['active_per_piece']:.3f}, "
         f"{poly_t['ops']:.4g} operations, {poly_t['bytes']:.4g} bytes [{smi}]")
+    log(f"  supersampled polylines soft: {ss_t['soft_ms']:.4f} ms/launch; sharp: "
+        f"{ss_t['ops']:.4g} operations ({ss_t['ops'] / (n * h * w):.1f} per pixel), "
+        f"{ss_t['bytes']:.4g} bytes, found share {ss_t['found_share']:.4f} [{smi}]")
 
     pipeline = {}
     depth01 = depth255 / 255.0
@@ -1007,7 +1185,8 @@ def polylines_times(image255, depth255):
     colour in, colour out: 4 B each per pixel and channel) and the operations
     of the sharp call on this input (`polylines_work`)."""
     from comfystereo_tpu_torch.kernels import polylines_exact as pk
-    x, cl, colors, max_disp = polylines_inputs(image255, depth255, DIV_PCT, 0.0)
+    x, coord, colors, max_disp = polylines_inputs(image255, depth255, DIV_PCT, 0.0)
+    cl = coord.abs()
     kw = dict(max_pieces=12, max_disp=max_disp)
     ms = time_ms(lambda: pk.polylines_exact_rows(x, cl, colors, sharp=True, **kw))
     soft_ms = time_ms(lambda: pk.polylines_exact_rows(x, cl, colors, sharp=False, **kw))
@@ -1016,6 +1195,69 @@ def polylines_times(image255, depth255):
     work = polylines_work(x, max_disp, True, colors.shape[-1])
     nbytes = 4.0 * (x.numel() + cl.numel() + 2 * colors.numel())
     return {"ms": ms, "soft_ms": soft_ms, "plain_ms": plain_ms, "bytes": nbytes, **work}
+
+
+def polylines_ss_times(image255, depth255):
+    """The supersampled polylines kernel (sharp, S = 8, K = 4; and soft) and
+    its plain version on the left eye's rows at 1080p, with the bytes (x,
+    coord and colour in, colour sums out: 4 B each per pixel and channel)
+    and the operations of the sharp call on this input (`polylines_ss_work`)."""
+    from comfystereo_tpu_torch.kernels import polylines as pk
+    x, coord, colors, max_disp = polylines_inputs(image255, depth255, DIV_PCT, 0.0)
+    kw = dict(samples=8, k_candidates=4, max_disp=max_disp)
+    ms = time_ms(lambda: pk.polylines_scanline(x, coord, colors, sharp=True, **kw))
+    soft_ms = time_ms(lambda: pk.polylines_scanline(x, coord, colors, sharp=False, **kw))
+    plain_ms = time_ms(lambda: pk.polylines_scanline_plain(x, coord, colors, sharp=True, **kw),
+                       iters=3, warmup=1)
+    work = polylines_ss_work(x, coord, max_disp, True, colors.shape[-1])
+    nbytes = 4.0 * (x.numel() + coord.numel() + 2 * colors.numel())
+    return {"ms": ms, "soft_ms": soft_ms, "plain_ms": plain_ms, "bytes": nbytes, **work}
+
+
+def polylines_ss_work(x, coord, max_disp: int, sharp: bool, c: int, samples: int = 8,
+                      k: int = 4):
+    """The float operations (adds, products, divisions, compares, min/max)
+    csrc/polylines.cu does on rows `x`, counted from its code and this input:
+    - per slot of the W + 1: the endpoints (2), the member and order tests
+      (5), sharp the flat tops (2) and their min/max (2), and the two scans'
+      min/max (4);
+    - per column: the two searches' compares (2 per round, and col + 1) and
+      the candidates' hit keys (between: 2 ends, 2 member tests, x1 > x0;
+      within: 2 ends and 2 tests) for both groups;
+    - per column and sample: the sample position (3); per group the key
+      compares (one per candidate), the winner's rebuild (5, where a
+      candidate is hit: counted from this input), denom (3), ip (4), covered
+      (2), closeness (4) and 3 per channel; the combine (1) and the sums (C)."""
+    import torch
+    from comfystereo_tpu_torch.kernels import polylines as pk
+    n, w = x.shape
+    rounds = pk.search_rounds(max_disp)
+    n_cands = 2 * k if sharp else k
+    e_hi, e_lo = pk.endpoint_streams(x, coord, sharp)
+    bases = (pk.search(torch.cummax(e_hi, -1).values, max_disp, True),
+             pk.search(torch.cummin(e_lo.flip(-1), -1).values.flip(-1), max_disp, False))
+    del e_hi, e_lo
+    cols = torch.arange(w, dtype=torch.float32, device=x.device)
+    found = 0.0
+    for base, up in zip(bases, (True, False)):
+        # one stand-in colour channel: the keys need only the ends and members
+        cands = pk.candidates(base, x, coord.abs(), coord, x[..., None], sharp, k, up)
+        keys = [torch.where(mem & (x1 > x0), x1 if up else x0,
+                            -float("inf") if up else float("inf"))
+                for x0, x1, _, _, _, _, mem in cands]
+        del cands
+        ext = torch.stack(keys).amax(0) if up else torch.stack(keys).amin(0)
+        del keys
+        for t in range(samples):
+            s = cols + pk.sample_offset(t, samples)
+            found += float(((ext > s) if up else (ext < s)).sum())
+    per_slot = 15.0 if sharp else 11.0
+    per_column = 2 * rounds + 1 + 2 * (k * (9 if sharp else 5))
+    per_group_sample = n_cands + 3 + 4 + 2 + 4 + 3 * c
+    per_sample = 3 + 2 * per_group_sample + 1 + c
+    ops = (n * (w + 1) * per_slot + n * w * per_column + n * w * samples * per_sample
+           + 5.0 * found)
+    return {"ops": ops, "found_share": found / (2.0 * n * w * samples)}
 
 
 def polylines_work(x, max_disp: int, sharp: bool, c: int):
@@ -1081,12 +1323,22 @@ def fill_times(image, depth01, smi: str):
         out[fill] = {"ms_per_chunk": ms, "ms_per_frame": ms / n, "fps": n * 1e3 / ms}
         log(f"  pipeline 1080p B={n} {fill}: {ms / n:.4f} ms/frame, "
             f"{n * 1e3 / ms:.2f} fps [{smi}]")
-    cfg = StereoConfig(fill_technique="polylines_sharp")
-    stages = stage_times(image, depth01, cfg)
-    log("  polylines_sharp stages per chunk: " + ", ".join(
-        f"{k} {v:.3f} ms" for k, v in stages.items()) + f" [{smi}]")
-    out["polylines_sharp"]["stages_ms"] = stages
-    for fill in ("polylines_sharp", "none", "hybrid_edge"):
+    for fill in LEGACY_FILLS:
+        cfg = StereoConfig(fill_technique=fill, polylines_exact=False)
+        ms = time_ms(lambda: stereo_pipeline(image, depth01, cfg), iters=5, warmup=1)
+        out[f"{fill} supersampled"] = {"ms_per_chunk": ms, "ms_per_frame": ms / n,
+                                       "fps": n * 1e3 / ms}
+        log(f"  pipeline 1080p B={n} {fill} polylines_exact=False: {ms / n:.4f} ms/frame, "
+            f"{n * 1e3 / ms:.2f} fps [{smi}]")
+    for label, exact in (("polylines_sharp", True), ("polylines_sharp supersampled", False)):
+        cfg = StereoConfig(fill_technique="polylines_sharp", polylines_exact=exact)
+        stages = stage_times(image, depth01, cfg)
+        log(f"  {label} stages per chunk: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in stages.items()) + f" [{smi}]")
+        out[label]["stages_ms"] = stages
+        out[label].update(idle_share(label, lambda: stereo_pipeline(image, depth01, cfg),
+                                     out[label]["ms_per_chunk"], smi))
+    for fill in ("none", "hybrid_edge"):
         cfg = StereoConfig(fill_technique=fill)
         out[fill].update(idle_share(fill, lambda: stereo_pipeline(image, depth01, cfg),
                                     out[fill]["ms_per_chunk"], smi))

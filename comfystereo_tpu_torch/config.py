@@ -96,9 +96,9 @@ class StereoConfig:
     gradient_threshold: float = 1.5
     max_stretch: int = 8
 
-    # Exact sub-interval integration for the polylines fills; False selects
-    # the supersampled renderer, which is not ported yet (the fills that
-    # reach it raise NotImplementedError).
+    # Exact sub-interval integration for the polylines fills (uint8 parity
+    # with the reference); False selects the supersampled renderer
+    # (ops/polylines.py), an approximation of it.
     polylines_exact: bool = True
     # Supersampling rate for the supersampled polylines renderer.
     polylines_samples: int = 8

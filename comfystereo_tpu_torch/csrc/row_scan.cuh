@@ -1,6 +1,6 @@
 // Block-wide helpers for kernels that give one CTA to one image row.
 //
-// Both kernels split a row two ways: strided (column x = threadIdx.x +
+// The row kernels split a row two ways: strided (column x = threadIdx.x +
 // k * blockDim.x, so neighbouring threads touch neighbouring addresses) for
 // loads, stores and shared-memory sweeps, and contiguous chunks (thread t owns
 // columns [t * per, (t + 1) * per)) for scans along the row, where each thread
@@ -13,32 +13,39 @@ namespace cs {
 
 constexpr int kThreads = 256;  // every kernel here launches 256 threads
 
-// Exclusive scan of one int per thread over the block, in thread order.
-// kForwardMax: running max from the left; otherwise running min from the
-// right. Threads with nothing before them get `identity`. `total`, when not
-// null, receives the max (or min) over all threads. `buf` holds 2 * kThreads
-// ints. Hillis-Steele with double buffering: log2(kThreads) steps.
-template <bool kForwardMax>
-__device__ int block_exclusive_scan(int v, int identity, int* buf, int* total) {
+template <typename T>
+struct NoDeduce {  // keeps a parameter out of template argument deduction
+  using type = T;
+};
+
+// Exclusive scan of one value (int or float) per thread over the block, in
+// thread order. kForwardMax: running max from the left; otherwise running
+// min from the right. Threads with nothing before them get `identity`.
+// `total`, when not null, receives the max (or min) over all threads. `buf`
+// holds 2 * kThreads values. Hillis-Steele with double buffering:
+// log2(kThreads) steps. Max and min are exact, so the order of the steps
+// does not change the result.
+template <bool kForwardMax, typename T>
+__device__ T block_exclusive_scan(T v, T identity, T* buf, typename NoDeduce<T>::type* total) {
   const int t = threadIdx.x;
-  int* a = buf;
-  int* b = buf + kThreads;
+  T* a = buf;
+  T* b = buf + kThreads;
   a[t] = v;
   __syncthreads();
   for (int s = 1; s < kThreads; s <<= 1) {
-    int x = a[t];
+    T x = a[t];
     if (kForwardMax) {
-      if (t >= s) x = max(x, a[t - s]);
+      if (t >= s && a[t - s] > x) x = a[t - s];
     } else {
-      if (t + s < kThreads) x = min(x, a[t + s]);
+      if (t + s < kThreads && a[t + s] < x) x = a[t + s];
     }
     b[t] = x;
     __syncthreads();
-    int* tmp = a;
+    T* tmp = a;
     a = b;
     b = tmp;
   }
-  int r;
+  T r;
   if (kForwardMax) {
     r = t > 0 ? a[t - 1] : identity;
   } else {

@@ -1,8 +1,9 @@
 """Row-scan primitives along the last axis, batched over leading axes.
 
 The JAX package writes these as associative scans; in PyTorch they are
-`cummax`/`cummin` over marked column indices. Only the helpers the gpu_warp
-path, the fills and the diffusion prefill use are here so far.
+`cummax`/`cummin`, over the values or over marked column indices. Only the
+helpers the gpu_warp path, the fills, the polylines and the diffusion
+prefill use are here so far.
 """
 from __future__ import annotations
 
@@ -13,6 +14,17 @@ import torch
 
 def _cols(valid: torch.Tensor) -> torch.Tensor:
     return torch.arange(valid.shape[-1], device=valid.device)
+
+
+def running_max(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix maximum along the last axis (max is exact, so any
+    scan order gives the same bits)."""
+    return torch.cummax(x, dim=-1).values
+
+
+def running_min(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix minimum along the last axis."""
+    return torch.cummin(x, dim=-1).values
 
 
 def nearest_true_left(valid: torch.Tensor) -> torch.Tensor:

@@ -5,9 +5,9 @@ The port's `stereo_pipeline` runs on the device of the tensors it is given
 and keeps the whole chunk there between stages. Two branches, as in the JAX
 package: `gpu_warp` (the forward warp, float32 or bfloat16 colour), and the
 CPU-parity fills, which work on uint8-valued float32 images through
-`apply_stereo_divergence`. The supersampled polylines renderer
-(`polylines_exact=False`) is not ported yet: the fills that would reach it
-raise NotImplementedError naming the ROADMAP item that ports it.
+`apply_stereo_divergence`. The polylines fills and the hybrid_edge_plus
+backfill take the exact renderer by default and the supersampled one with
+`polylines_exact=False` (`polylines_samples` sub-samples per pixel).
 
 Output contract (the Stereo Image node's, GenerateStereo.py:75-76): stereo
 images (one per mode), blurred left/right depth maps, and the no-fill
@@ -25,15 +25,7 @@ import torch
 from .config import StereoConfig
 from .ops import blur as blur_ops
 from .ops import depth as depth_ops
-from .ops import fills, pack, polylines_exact, warp
-
-# Fills that reach the supersampled polylines renderer when
-# polylines_exact=False -> the ROADMAP item (queue 1) that ports it.
-UNPORTED_FILLS = {
-    "polylines_soft": "queue 1 item 8 (supersampled polylines)",
-    "polylines_sharp": "queue 1 item 8 (supersampled polylines)",
-    "hybrid_edge_plus": "queue 1 item 8 (supersampled polylines backfill)",
-}
+from .ops import fills, pack, polylines, polylines_exact, warp
 
 
 def apply_stereo_divergence(image_u8: torch.Tensor, depth: torch.Tensor,
@@ -41,16 +33,13 @@ def apply_stereo_divergence(image_u8: torch.Tensor, depth: torch.Tensor,
                             stereo_offset_exponent: float,
                             fill_technique: str,
                             convergence_point: float = 0.5,
+                            polylines_samples: int = 8,
                             polylines_exact_mode: bool = True) -> torch.Tensor:
     """CPU-parity single-eye dispatcher (reference :1576-1620).
 
     image_u8: [B,H,W,C] float32 holding uint8 values; depth: [B,H,W] raw.
     divergence/separation are percentages of image width.
     """
-    if not polylines_exact_mode and fill_technique in UNPORTED_FILLS:
-        raise NotImplementedError(
-            f"fill_technique {fill_technique!r} with polylines_exact=False is "
-            f"not ported yet: ROADMAP {UNPORTED_FILLS[fill_technique]}")
     w = image_u8.shape[-2]
     nd = depth_ops.normalize_depth(depth) - convergence_point
     divergence_px = (divergence / 100.0) * w
@@ -79,17 +68,26 @@ def apply_stereo_divergence(image_u8: torch.Tensor, depth: torch.Tensor,
         guidance = fills.rgb2gray(image_u8)
         filled_img = fills.edge_aware_gap_fill(base, mask, guidance)
         if fill_technique == "hybrid_edge_plus":
-            poly = polylines_exact.apply_polylines_exact(
-                image_u8, nd, divergence_px, separation_px, exp, sharp=False)
+            if polylines_exact_mode:
+                poly = polylines_exact.apply_polylines_exact(
+                    image_u8, nd, divergence_px, separation_px, exp, sharp=False)
+            else:
+                poly = polylines.apply_polylines(
+                    image_u8, nd, divergence_px, separation_px, exp, sharp=False,
+                    samples=polylines_samples)
             black = filled_img.sum(-1) == 0
             return torch.where(black[..., None], poly, filled_img)
         return filled_img
     if fill_technique in ("polylines_soft", "polylines_sharp"):
-        # Exact sub-interval integration: bit-parity with the reference
-        # scanline renderer (:1947-1991).
-        return polylines_exact.apply_polylines_exact(
-            image_u8, nd, divergence_px, separation_px, exp,
-            sharp=fill_technique == "polylines_sharp")
+        sharp = fill_technique == "polylines_sharp"
+        if polylines_exact_mode:
+            # Exact sub-interval integration: bit-parity with the reference
+            # scanline renderer (:1947-1991).
+            return polylines_exact.apply_polylines_exact(
+                image_u8, nd, divergence_px, separation_px, exp, sharp=sharp)
+        return polylines.apply_polylines(
+            image_u8, nd, divergence_px, separation_px, exp, sharp=sharp,
+            samples=polylines_samples)
     return image_u8  # reference fallback (:1620)
 
 
@@ -138,7 +136,7 @@ def _eye(src: torch.Tensor, eye_d: torch.Tensor, div: float, sign: float,
     return apply_stereo_divergence(
         src, eye_d, sign * div, -sign * cfg.separation,
         cfg.stereo_offset_exponent, cfg.fill_technique,
-        cfg.convergence_point, cfg.polylines_exact), None
+        cfg.convergence_point, cfg.polylines_samples, cfg.polylines_exact), None
 
 
 def _outputs(left, right, left_d: torch.Tensor, right_d: torch.Tensor,

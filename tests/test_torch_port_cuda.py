@@ -10,9 +10,10 @@ import pytest
 import torch
 
 from comfystereo_tpu_torch import FILL_TECHNIQUES, StereoConfig, stereo_pipeline
-from comfystereo_tpu_torch.kernels import (distance, flash_attention, gather,
+from comfystereo_tpu_torch.kernels import (distance, flash_attention, gather, polylines,
                                            polylines_exact, warp_kernel)
 from comfystereo_tpu_torch.ops import depth as depth_ops
+from comfystereo_tpu_torch.ops import polylines as polylines_ops
 from comfystereo_tpu_torch.utils import fixtures
 
 pytestmark = pytest.mark.cuda
@@ -107,13 +108,21 @@ def test_gather_kernel_broadcasts_index_planes(dev):
 
 
 def _poly_rows(dev, depth, div_px, sep_px, channels):
+    """Both polylines kernels' row arguments (x, signed coord, colours,
+    max_disp), as the ops modules make them; the exact kernel takes |coord|."""
     img = fixtures.create_test_image(H, W).astype(np.float32)[..., :channels]
     nd = depth_ops.normalize_depth(torch.from_numpy(depth).to(dev)[None]) - 0.5
     coord = depth_ops.signed_power(nd, 2.0)[0] * div_px
     x = torch.arange(W, dtype=torch.float32, device=dev) + 0.5 + coord + sep_px
     colors = torch.from_numpy(np.ascontiguousarray(img)).to(dev)
     max_disp = int(np.ceil(abs(div_px) + abs(sep_px))) + 4
-    return x.contiguous(), coord.abs().contiguous(), colors, max_disp
+    return x.contiguous(), coord.contiguous(), colors, max_disp
+
+
+def _depth(kind):
+    if kind == "fixture":
+        return fixtures.create_depth_map(H, W).astype(np.float32)
+    return np.random.default_rng(0).uniform(0, 255, (H, W)).astype(np.float32)
 
 
 @pytest.mark.parametrize("sharp", [True, False])
@@ -121,9 +130,8 @@ def _poly_rows(dev, depth, div_px, sep_px, channels):
 @pytest.mark.parametrize("div_px,sep_px,kind", [(3.0, 0.0, "fixture"), (-3.0, 0.0, "fixture"),
                                                 (4.5, 1.0, "noise"), (-6.0, 0.5, "noise")])
 def test_polylines_kernel_matches_plain(dev, sharp, channels, div_px, sep_px, kind):
-    depth = (fixtures.create_depth_map(H, W).astype(np.float32) if kind == "fixture" else
-             np.random.default_rng(0).uniform(0, 255, (H, W)).astype(np.float32))
-    x, cl, colors, max_disp = _poly_rows(dev, depth, div_px, sep_px, channels)
+    x, coord, colors, max_disp = _poly_rows(dev, _depth(kind), div_px, sep_px, channels)
+    cl = coord.abs()
     kw = dict(sharp=sharp, max_pieces=12, max_disp=max_disp)
     before = polylines_exact.LAUNCHES
     got = polylines_exact.polylines_exact_rows(x, cl, colors, **kw)
@@ -131,6 +139,54 @@ def test_polylines_kernel_matches_plain(dev, sharp, channels, div_px, sep_px, ki
     assert polylines_exact.LAUNCHES == before + 1
     want = polylines_exact.polylines_exact_rows_plain(x, cl, colors, sharp, 12, max_disp)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("sharp", [True, False])
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("div_px,sep_px,kind", [(3.0, 0.0, "fixture"), (-3.0, 0.0, "fixture"),
+                                                (4.5, 1.0, "noise"), (-6.0, 0.5, "noise")])
+def test_supersampled_polylines_kernel_matches_plain(dev, sharp, channels, div_px, sep_px,
+                                                     kind):
+    x, coord, colors, max_disp = _poly_rows(dev, _depth(kind), div_px, sep_px, channels)
+    kw = dict(sharp=sharp, samples=8, k_candidates=4, max_disp=max_disp)
+    before = polylines.LAUNCHES
+    got = polylines.polylines_scanline(x, coord, colors, **kw)
+    torch.cuda.synchronize()
+    assert polylines.LAUNCHES == before + 1
+    assert torch.equal(got, polylines.polylines_scanline_plain(x, coord, colors, **kw))
+
+
+@pytest.mark.parametrize("samples", [1, 4, 5])
+def test_supersampled_polylines_kernel_other_sample_counts(dev, samples):
+    x, coord, colors, max_disp = _poly_rows(dev, _depth("noise"), 5.0, -0.5, 3)
+    kw = dict(sharp=True, samples=samples, k_candidates=4, max_disp=max_disp)
+    got = polylines.polylines_scanline(x, coord, colors, **kw)
+    assert torch.equal(got, polylines.polylines_scanline_plain(x, coord, colors, **kw))
+
+
+def test_supersampled_polylines_kernel_rejects_unsupported(dev):
+    x, coord, colors, max_disp = _poly_rows(dev, _depth("fixture"), 3.0, 0.0, 3)
+    with pytest.raises(ValueError):
+        polylines.polylines_scanline(x, coord, colors, sharp=True, samples=8, k_candidates=3,
+                                     max_disp=max_disp)
+    with pytest.raises(ValueError):
+        polylines.polylines_scanline(x, coord, torch.zeros(H, W, 4, device=dev), sharp=True,
+                                     samples=8, k_candidates=4, max_disp=max_disp)
+
+
+@pytest.mark.parametrize("sharp", [True, False])
+def test_supersampled_routes_on_card_match_cpu(dev, sharp):
+    """Each route of apply_polylines gives the same bits on the card as on
+    the CPU (the kernel against its plain version, the twin's PyTorch ops
+    on both devices)."""
+    img, depths = fixtures.batch_fixture(2, H, W)
+    img = np.trunc(img * 255.0).astype(np.float32)
+    nd = depth_ops.normalize_depth(torch.from_numpy(depths)) - 0.5
+    for impl in ("kernel", "twin"):
+        outs = [polylines_ops.apply_polylines(torch.from_numpy(img).to(d), nd.to(d), 4.0, 1.0,
+                                              2.0, sharp=sharp, impl=impl).cpu()
+                for d in (dev, torch.device("cpu"))]
+        assert torch.equal(outs[0], outs[1]), impl
 
 
 @pytest.mark.parametrize("fill", [f for f in FILL_TECHNIQUES if f != "gpu_warp"])

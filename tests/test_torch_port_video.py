@@ -80,15 +80,21 @@ def test_entry_points_default_device_needs_cuda(tmp_path):
                              str(tmp_path / "out.avi"), progress=False)
 
 
-def test_convert_video_device_error_does_not_hang(tmp_path):
-    """A chunk that fails on the device (here a fill that reaches the
-    unported supersampled polylines) surfaces its error; the decoder thread,
-    blocked on a full queue, is released."""
+def test_convert_video_device_error_does_not_hang(tmp_path, monkeypatch):
+    """A chunk that fails on the device (here a stereo_pipeline that raises)
+    surfaces its error; the decoder thread, blocked on a full queue, is
+    released."""
     import threading
 
+    class ChunkFailed(RuntimeError):
+        pass
+
+    def failing_pipeline(*args, **kwargs):
+        raise ChunkFailed("device chunk failed")
+
+    monkeypatch.setattr(tvideo, "stereo_pipeline", failing_pipeline)
     src, dep = _write_fixture_videos(str(tmp_path))
-    cfg = config_from_fields(dict(fill_technique="polylines_sharp",
-                                  polylines_exact=False, batch_size=1))
+    cfg = config_from_fields(dict(batch_size=1))
     caught = []
 
     def run():
@@ -102,4 +108,4 @@ def test_convert_video_device_error_does_not_hang(tmp_path):
     t.start()
     t.join(timeout=60)
     assert not t.is_alive()
-    assert len(caught) == 1 and isinstance(caught[0], NotImplementedError)
+    assert len(caught) == 1 and isinstance(caught[0], ChunkFailed)

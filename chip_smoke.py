@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-times [--root DIR]
 
 Runs from the repository root (it imports `comfystereo_tpu_torch` from
 beside itself; it never imports JAX or `comfystereo_tpu`). Phases, in order;
@@ -60,7 +61,16 @@ any failure ends the run with a non-zero exit code:
    polylines_sharp, exact and supersampled; the flash kernel,
    its plain version and `scaled_dot_product_attention` (a yardstick the
    port never calls) at the three shapes, the bf16 UNet CFG call, VAE
-   encode and decode, and warp_inpaint per frame with its idle share.
+   encode and decode, and warp_inpaint per frame with its idle share; for
+   the kernels redesigned after their port (the gather and the flash
+   attention) their registers, spills and shared memory from `-Xptxas -v`,
+   and for the gather of a colour plane its bound.
+
+`--kernel-times` only builds and times the flash kernel (beside
+scaled_dot_product_attention) and the gather (beside torch.gather) and
+prints one JSON line; with `--root DIR` it imports the package from DIR, so
+that a parent tree unpacked under `build/` and the change can be timed in
+turns in one call.
 
 It prints one `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Without CUDA, or without the package beside
@@ -448,6 +458,42 @@ def read_launches():
     import importlib
     return {KERNEL_NAMES[mod]: importlib.import_module(
         f"comfystereo_tpu_torch.kernels.{mod}").LAUNCHES for mod in KERNEL_MODULES}
+
+
+# Kernels redesigned after their port, and in which PR.
+REDESIGNED = {"gather": "PR 5", "flash_attention": "PR 5"}
+
+
+def ptxas_usage(name: str) -> str:
+    """Registers, spill stores and static shared memory of each entry
+    function, from `-Xptxas -v` in the kernel's build log (the flash
+    kernel's instances by their template argument, its Q.K^T k-steps)."""
+    import re
+    from comfystereo_tpu_torch.kernels import _build
+    parts, fn, spill = [], "kernel", "?"
+    for ln in _build.build_log(name).splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            k = re.search(r"ILi(\d+)EE", m.group(1))
+            fn = f"<{k.group(1)}>" if k else "kernel"
+            spill = "?"
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            parts.append(f"{fn} {m.group(1)} registers, {spill} B spilled, "
+                         f"{smem.group(1) if smem else 0} B static shared")
+    return "; ".join(parts) if parts else "no build log (library found built)"
+
+
+def flash_smem(dp: int) -> int:
+    """Dynamic shared memory of a flash CTA (csrc/flash_attention.cu,
+    Config::kSmem): Q and 4 (DP 64) or 2 (DP 128) stages of K and V, 16 KB
+    per 64 columns of a 128-row tile, and 1 KB of alignment slack."""
+    nb = dp // 64
+    return 16384 * nb * (1 + 2 * (4 if nb == 1 else 2)) + 1024
 
 
 def check_node_outputs(stereo, left_d, right_d, mask, mask_shape, n, h, w):
@@ -1024,7 +1070,9 @@ def diffusion_times(dev, sd, launches: int, err: float, smi: str, name: str):
              "source": "comfystereo_tpu_torch/csrc/flash_attention.cu",
              "replaces": "comfystereo_tpu/pallas/flash_attention.py:164", "launches": launches,
              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-             "bound_by": by, "library_ms": lib_ms}
+             "bound_by": by, "library_ms": lib_ms, "redesigned": REDESIGNED["flash_attention"]}
+    log(f"  flash_attention build [{smi}]: {ptxas_usage('flash_attention')}; dynamic shared "
+        f"memory per CTA {flash_smem(64)} B (d <= 64), {flash_smem(128)} B (d <= 128)")
 
     model, s = sd["model"], SD_SIZE
     unet_ms = time_ms(lambda: model.unet_apply(sd["lat"], sd["t"], sd["ctx"]), iters=5)
@@ -1065,7 +1113,7 @@ def phase_times(dev, launches, errs, smi: str, name: str,
                 n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
     import torch
     from comfystereo_tpu_torch import StereoConfig, stereo_pipeline
-    from comfystereo_tpu_torch.kernels import distance, warp_kernel
+    from comfystereo_tpu_torch.kernels import distance, gather, warp_kernel
 
     key, (bw, flops, _, _) = peaks(name)
     imgs, deps = fixture_frames(n, h, w)
@@ -1091,14 +1139,18 @@ def phase_times(dev, launches, errs, smi: str, name: str,
     poly_t = polylines_times(image * 255.0, depth255)
     ss_t = polylines_ss_times(image * 255.0, depth255)
 
-    def entry(kname, source, replaces, ms, plain_ms, nbytes, ops, err, library_ms=None):
+    def entry(kname, source, replaces, ms, plain_ms, nbytes, ops, err, library_ms=None,
+              redesigned=None):
         t_bytes, t_ops = nbytes / bw * 1e3, ops / flops * 1e3
-        return {"name": kname, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[kname],
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": library_ms}
+        e = {"name": kname, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches[kname],
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": library_ms}
+        if redesigned:
+            e["redesigned"] = redesigned
+        return e
 
     kernels = [
         entry("warp_rows", "comfystereo_tpu_torch/csrc/warp_kernel.cu",
@@ -1110,7 +1162,7 @@ def phase_times(dev, launches, errs, smi: str, name: str,
         entry("bounded_take_along_w", "comfystereo_tpu_torch/csrc/gather.cu",
               "comfystereo_tpu/pallas/gather.py:100", gather_t["ms"],
               gather_t["plain_ms"], gather_t["bytes"], 0.0,
-              errs["gather_max_abs_err"], gather_t["library_ms"]),
+              errs["gather_max_abs_err"], gather_t["library_ms"], REDESIGNED["gather"]),
         entry("polylines_exact_rows", "comfystereo_tpu_torch/csrc/polylines_exact.cu",
               "comfystereo_tpu/pallas/polylines_exact_kernel.py:630", poly_t["ms"],
               poly_t["plain_ms"], poly_t["bytes"], poly_t["ops"],
@@ -1127,7 +1179,9 @@ def phase_times(dev, launches, errs, smi: str, name: str,
             f"{k['launches']} launches per {n}-frame chunk "
             f"({k['launches'] / n:.4f} per frame) [{smi}]")
     log(f"  gather of [{n},3,{h},{w}] colour by a [{n},1,{h},{w}] plane: "
-        f"{gather_t['plane_ms']:.4f} ms, torch.gather {gather_t['plane_library_ms']:.4f} ms; "
+        f"{gather_t['plane_ms']:.4f} ms, bound {gather_t['plane_bytes'] / bw * 1e3:.4f} ms "
+        f"(bytes, {gather_t['plane_bytes']:.4g}), torch.gather "
+        f"{gather_t['plane_library_ms']:.4f} ms; "
         f"polylines soft: {poly_t['soft_ms']:.4f} ms/launch; sharp: pieces per "
         f"pixel {poly_t['pieces_per_px']:.3f}, window {poly_t['window_mean']:.1f} "
         f"columns per row, active candidates per piece {poly_t['active_per_piece']:.3f}, "
@@ -1135,6 +1189,9 @@ def phase_times(dev, launches, errs, smi: str, name: str,
     log(f"  supersampled polylines soft: {ss_t['soft_ms']:.4f} ms/launch; sharp: "
         f"{ss_t['ops']:.4g} operations ({ss_t['ops'] / (n * h * w):.1f} per pixel), "
         f"{ss_t['bytes']:.4g} bytes, found share {ss_t['found_share']:.4f} [{smi}]")
+
+    log(f"  gather build [{smi}]: {ptxas_usage('gather')}; dynamic shared memory per CTA "
+        f"{gather.smem_bytes(w, w, 1)} B (keys), {gather.smem_bytes(w, w, 3)} B (plane)")
 
     pipeline = {}
     depth01 = depth255 / 255.0
@@ -1162,8 +1219,9 @@ def phase_times(dev, launches, errs, smi: str, name: str,
 def gather_times(dev, n: int, h: int, w: int):
     """The gather kernel, its plain version and torch.gather on the fills'
     int32 keys (the binary searches' call, the most frequent), and on
-    colour planes by one index plane. Bytes: index, value and output, 4 B
-    each, per output element."""
+    colour planes by one index plane. Bytes: each value, index and output
+    element once, 4 B each (keys: 12 B per output element; the plane: 8 B
+    per output element and 4 B per index element)."""
     import torch
     from comfystereo_tpu_torch.kernels import gather
     keys, idx, planes, idx_plane, disp = gather_inputs(dev, n, h, w, seed=1)
@@ -1176,6 +1234,7 @@ def gather_times(dev, n: int, h: int, w: int):
         "bytes": 12.0 * idx.numel(),
         "plane_ms": time_ms(lambda: gather.bounded_take_along_w(planes, idx_plane, disp)),
         "plane_library_ms": time_ms(lambda: torch.gather(planes, -1, plane64)),
+        "plane_bytes": 4.0 * (2 * planes.numel() + idx_plane.numel()),
     }
 
 
@@ -1414,7 +1473,44 @@ def device_busy(fn, iters: int = 3):
     return busy_ms, start.elapsed_time(end) / iters, top
 
 
+def kernel_times(dev, smi: str, root: str) -> None:
+    """The flash kernel beside scaled_dot_product_attention at FLASH_SHAPES,
+    and the gather beside torch.gather on the keys and the plane, for the
+    package under `root`: one JSON line, so that two trees (a parent's and
+    its change) can be timed in turns in one call on one card."""
+    import torch
+    import torch.nn.functional as F
+    from comfystereo_tpu_torch.kernels import _build, flash_attention as fa, gather
+    _build.build(["flash_attention", "gather"])
+    out = {"root": root, "card": smi, "flash": {}, "gather": {}}
+    for bh, nq, nk, d in FLASH_SHAPES:
+        q, k, v = flash_inputs(dev, bh, nq, nk, d, seed=1)
+        q4, k4, v4 = (t.reshape(2, bh // 2, -1, d) for t in (q, k, v))
+        out["flash"][str((bh, nq, nk, d))] = {
+            "ms": time_ms(lambda: fa.flash_attention(q, k, v, d ** -0.5), iters=20),
+            "sdpa_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, scale=d ** -0.5), iters=20)}
+        del q, k, v, q4, k4, v4
+    keys, idx, planes, idx_plane, disp = gather_inputs(dev, FRAMES, HEIGHT, WIDTH, seed=1)
+    plane64 = idx_plane.long().expand(planes.shape)
+    idx64 = idx.long()
+    out["gather"] = {
+        "keys_ms": time_ms(lambda: gather.bounded_take_along_w(keys, idx, disp)),
+        "keys_torch_gather_ms": time_ms(lambda: torch.gather(keys, -1, idx64)),
+        "plane_ms": time_ms(lambda: gather.bounded_take_along_w(planes, idx_plane, disp)),
+        "plane_torch_gather_ms": time_ms(lambda: torch.gather(planes, -1, plane64))}
+    print(json.dumps({"kernel_times": out}), flush=True)
+
+
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="only time the flash and gather kernels (one JSON line)")
+    ap.add_argument("--root", default=HERE,
+                    help="import comfystereo_tpu_torch from this directory "
+                         "(default: beside chip_smoke.py)")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -1423,14 +1519,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    if not os.path.isdir(os.path.join(HERE, "comfystereo_tpu_torch")):
-        print("chip_smoke: comfystereo_tpu_torch is not beside chip_smoke.py",
-              file=sys.stderr)
+    root = os.path.abspath(args.root)
+    if not os.path.isdir(os.path.join(root, "comfystereo_tpu_torch")):
+        print(f"chip_smoke: comfystereo_tpu_torch is not in {root}", file=sys.stderr)
         return 1
-    sys.path.insert(0, HERE)
+    sys.path.insert(0, root)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    if args.kernel_times:
+        kernel_times(dev, nvidia_smi(), root)
+        return 0
 
     smi, name = phase_device()
     errs = phase_kernels(dev)

@@ -4,8 +4,14 @@ Kernel: `csrc/flash_attention.cu`, CUDA C++ for sm_90a, replacing the Pallas
 kernel `comfystereo_tpu/pallas/flash_attention.py:flash_attention`
 (`_flash_call`, `_kernel`). It keeps the N^2 logits on the SM: f32 logits
 from bf16 products, an online softmax over key tiles with an f32 running
-max, sum and accumulator, and bf16 weights in the product with v. At the
-UNet's level-0 shape the exponentials bound it (see the source's header).
+max, sum and accumulator, and bf16 weights in the product with v. TMA loads
+the tiles and `wgmma` multiplies them. At the UNet's level-0 shape the
+exponentials bound it (see the source's header).
+
+TMA needs rows of a multiple of 16 bytes, so the wrapper zero-pads q, k and
+v to a head dimension of a multiple of 8 (`pad_head_dim`) and slices the
+output back; zero columns change no logit, and v's zero columns give output
+columns that are dropped. No UNet has such a head dimension.
 
 `flash_attention` launches the kernel for CUDA tensors and runs the plain
 version, `reference` (the counterpart of JAX's `_reference`: the same
@@ -77,6 +83,21 @@ def reference_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(a, v)
 
 
+def tma_head_dim(d: int) -> int:
+    """The head dimension the kernel runs at: d rounded up to a multiple of
+    8 (16-byte rows of bf16)."""
+    return -(-d // 8) * 8
+
+
+def pad_head_dim(t: torch.Tensor, d: int) -> torch.Tensor:
+    """t [..., D] zero-padded on its last axis to d >= D columns, contiguous
+    and 16-byte aligned (a fresh tensor unless it already was all three)."""
+    if t.shape[-1] != d:
+        t = torch.nn.functional.pad(t, (0, d - t.shape[-1]))
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """Softmax attention, q [BH, Nq, D], k and v [BH, Nk, D] bf16 ->
@@ -103,11 +124,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     from . import _build
 
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    dk = tma_head_dim(d)
+    q, k, v = (pad_head_dim(t, dk) for t in (q, k, v))
     out = torch.empty_like(q)
     err = _build.library("flash_attention").cs_flash_attention_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, nq, nk, d,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, nq, nk, dk,
         float(scale), _common.stream_ptr(q.device))
     _build.check(err, "flash_attention kernel launch")
     LAUNCHES += 1
-    return out
+    return out if dk == d else out[..., :d].contiguous()

@@ -1,10 +1,12 @@
 """Bounded-displacement gather along the last axis (`values[..., idx]`).
 
 Kernel: `csrc/gather.cu`, CUDA C++ for sm_90a, replacing the Pallas kernel
-`comfystereo_tpu/pallas/gather.py:bounded_take_along_w`. One thread per
-output element; it copies 4-byte values bit for bit, so float32 and int32
-both come out equal to `torch.gather`. It is bound by bytes (index in, value
-in, value out: 12 B per output element). See the source's header.
+`comfystereo_tpu/pallas/gather.py:bounded_take_along_w`. One CTA per index
+row: it stages the index row and the value rows that share it in shared
+memory with 16-byte copies, gathers there, and writes 16-byte stores; it
+copies 4-byte values bit for bit, so float32 and int32 both come out equal
+to `torch.gather`. It is bound by bytes (each value, index and output
+element once, 4 B each). See the source's header.
 
 `bounded_take_along_w` launches the kernel for CUDA tensors and runs the
 plain version, `torch.gather` (what the JAX package computes off the TPU),
@@ -16,10 +18,12 @@ channel of a [B, C, H, W] image with one [B, 1, H, W] plane).
 
 `max_disp` is kept so that the signature and the callers match the JAX
 package, where the TPU kernel sizes its source window by it; the CUDA kernel
-reads any column of the row and does not use it. An index outside [0, M-1]
-fails on both devices: `torch.gather` raises on the CPU, and the kernel
-stops with a device-side assert on the card (reported at the next
-synchronisation, as `torch.gather`'s own CUDA kernel reports it).
+reads any column of the row and does not use it. The staged rows must fit
+in one CTA's shared memory (`check_fits`: M = N up to 29,053 columns row for
+row, 14,525 for a three-channel plane): on the card a larger row raises. An
+index outside [0, M-1] fails on both devices: `torch.gather` raises on the
+CPU, and the kernel stops with a device-side assert on the card (reported at
+the next synchronisation, as `torch.gather`'s own CUDA kernel reports it).
 """
 from __future__ import annotations
 
@@ -33,6 +37,27 @@ from . import _common
 LAUNCHES = 0  # kernel launches since the last reset (plain-version calls don't count)
 
 _VALUE_DTYPES = (torch.float32, torch.int32)
+# Shared memory one CTA may opt in to on sm_90 (227 KB).
+SMEM_LIMIT = 232448
+
+
+def smem_bytes(m: int, n: int, rep: int) -> int:
+    """Shared memory the kernel stages for one index row of n indices and
+    its `rep` value rows of m values: each row 4-byte words with up to 3
+    words of alignment phase in front, rounded up to 16 bytes
+    (`csrc/gather.cu:slot`)."""
+    def slot(k: int) -> int:
+        return (k + 6) // 4 * 4
+    return 4 * (rep * slot(m) + slot(n))
+
+
+def check_fits(m: int, n: int, rep: int) -> None:
+    """Raise unless the kernel's staged rows fit in one CTA's shared memory."""
+    need = smem_bytes(m, n, rep)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"bounded_take_along_w: rows of {m} values and {n} indices "
+                         f"({rep} value rows per index row) need {need} bytes of "
+                         f"shared memory, over the {SMEM_LIMIT} one CTA holds")
 
 
 def _broadcast_rows(lead_v: Tuple[int, ...], lead_i: Tuple[int, ...]):
@@ -84,6 +109,7 @@ def bounded_take_along_w(values: torch.Tensor, idx: torch.Tensor,
     from . import _build
 
     m, n = values.shape[-1], idx.shape[-1]
+    check_fits(m, n, rows_map[0])
     values = values.contiguous()
     idx = idx.contiguous()
     rows = math.prod(lead_v)

@@ -107,6 +107,50 @@ def test_gather_kernel_broadcasts_index_planes(dev):
     assert torch.equal(got, gather.bounded_take_along_w_plain(values, idx))
 
 
+@pytest.mark.parametrize("m,n", [(200, 200), (203, 197), (37, 30)])
+def test_gather_kernel_planes_m_not_n(dev, m, n):
+    """rep = 3 value rows per index row with M != N and N % 4 != 0: rows start
+    at every 16-byte phase, so the scalar heads and tails run."""
+    rng = np.random.default_rng(m * n)
+    values = torch.from_numpy(rng.standard_normal((2, 3, 9, m)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, m, (2, 1, 9, n)).astype(np.int32)).to(dev)
+    got = gather.bounded_take_along_w(values, idx, m)
+    assert torch.equal(got, torch.gather(values, -1, idx.long().expand(2, 3, 9, n)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_gather_kernel_unaligned_views(dev, dtype):
+    """values and index whose data start 4 bytes past a 16-byte boundary (a
+    contiguous view at storage offset 1)."""
+    rng = np.random.default_rng(7)
+    vbase = torch.from_numpy(rng.integers(-10 ** 6, 10 ** 6, 3 * 7 * 300 + 1)).to(dev, dtype)
+    ibase = torch.from_numpy(rng.integers(0, 300, 3 * 7 * 256 + 1).astype(np.int32)).to(dev)
+    values, idx = vbase[1:].view(3, 7, 300), ibase[1:].view(3, 7, 256)
+    assert values.data_ptr() % 16 == 4 and idx.data_ptr() % 16 == 4
+    got = gather.bounded_take_along_w(values, idx, 300)
+    assert torch.equal(got, torch.gather(values, -1, idx.long()))
+
+
+def test_gather_kernel_binary_search_pattern(dev):
+    """int32 sorted keys gathered at indices spread over the whole row, as
+    the fills' binary searches' midpoints can fall."""
+    rng = np.random.default_rng(11)
+    keys = np.sort(rng.integers(0, 4000, (4, 30, 1920)), axis=-1).astype(np.int32)
+    mid = rng.integers(0, 1920, (4, 30, 1920)).astype(np.int32)
+    keys, mid = torch.from_numpy(keys).to(dev), torch.from_numpy(mid).to(dev)
+    got = gather.bounded_take_along_w(keys, mid, 8)
+    assert torch.equal(got, torch.gather(keys, -1, mid.long()))
+
+
+def test_gather_kernel_rejects_rows_over_shared_memory(dev):
+    values = torch.zeros(2, 30000, device=dev)
+    idx = torch.zeros(2, 30000, dtype=torch.int32, device=dev)
+    before = gather.LAUNCHES
+    with pytest.raises(ValueError, match=str(gather.SMEM_LIMIT)):
+        gather.bounded_take_along_w(values, idx, 8)
+    assert gather.LAUNCHES == before
+
+
 def _poly_rows(dev, depth, div_px, sep_px, channels):
     """Both polylines kernels' row arguments (x, signed coord, colours,
     max_disp), as the ops modules make them; the exact kernel takes |coord|."""
@@ -216,7 +260,10 @@ def test_fill_pipeline_on_card_matches_cpu(dev, fill):
     (16, 1024, 1024, 80),   # level 1
     (4, 1024, 2048, 40),    # BN 'bi' stereo: kv = both views
     (2, 1024, 1024, 64),
-    (2, 1152, 1024, 20),    # d not a multiple of 8: the scalar loads
+    (2, 1152, 1024, 20),    # d not a multiple of 8: the wrapper pads to 24 and slices
+    (2, 1024, 1024, 128),   # a padded head dimension of 128 (two 64-column blocks)
+    (2, 1024, 1024, 48),    # d between 40 and 64
+    (2, 2048, 1024, 80),    # nq != nk
 ])
 def test_flash_kernel_matches_reference(dev, bh, nq, nk, d):
     """bf16 outputs within 4e-3 of the plain version in f32 (JAX's own bound

@@ -73,6 +73,36 @@ def test_reference_bf16_matches_jax():
     np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=4e-3)
 
 
+@pytest.mark.parametrize("d", [20, 36])
+def test_pad_head_dim_matches_unpadded_and_jax(d):
+    """The wrapper's step for d % 8 != 0 (TMA needs 16-byte rows): `reference`
+    on q, k and v zero-padded to a multiple of 8 and sliced back equals
+    `reference` on the originals and JAX's `_reference` (atol 4e-3)."""
+    shape = (2, 1024, 1024, d)
+    (jq, jk, jv), (q, k, v) = _both(_qkv(shape, d), "bfloat16")
+    dk = tfa.tma_head_dim(d)
+    assert dk % 8 == 0 and d < dk < d + 8
+    padded = [tfa.pad_head_dim(t, dk) for t in (q, k, v)]
+    for t, pt in zip((q, k, v), padded):
+        assert pt.shape[-1] == dk and pt.is_contiguous()
+        assert torch.equal(pt[..., :d], t) and not bool(pt[..., d:].any())
+    got = tfa.reference(*padded, d ** -0.5)[..., :d]
+    np.testing.assert_allclose(_np(got), _np(tfa.reference(q, k, v, d ** -0.5)),
+                               rtol=0, atol=4e-3)
+    want = np.asarray(jfa._reference(jq, jk, jv, d ** -0.5), np.float32)
+    np.testing.assert_allclose(_np(got), want, rtol=0, atol=4e-3)
+
+
+def test_tma_head_dim_rounds_up_to_16_bytes():
+    assert [tfa.tma_head_dim(d) for d in (8, 20, 36, 40, 64, 80, 127, 128)] == \
+        [8, 24, 40, 40, 64, 80, 128, 128]
+    t = torch.zeros(3, 5, 40, dtype=torch.bfloat16)
+    assert tfa.pad_head_dim(t, 40) is t  # already 16-byte rows: no copy
+    view = torch.zeros(3 * 5 * 40 + 1, dtype=torch.bfloat16)[1:].view(3, 5, 40)
+    moved = tfa.pad_head_dim(view, 40)
+    assert moved.data_ptr() % 16 == 0 and torch.equal(moved, view)
+
+
 GATING = [(1024, 1024, 40, "float32"), (512, 1024, 40, "bfloat16"),
           (1024, 1000, 40, "bfloat16"), (1024, 1024, 160, "bfloat16"),
           (1056, 1024, 40, "bfloat16"), (4096, 4096, 40, "bfloat16"),

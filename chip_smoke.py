@@ -19,10 +19,13 @@ any failure ends the run with a non-zero exit code:
    fills' shapes, int32 keys and a [B,1,H,W] index plane over [B,3,H,W]
    colour (bit-equal); the exact polylines against its plain version on
    the same 12 frames, sharp and soft, divergence +-4.5% with separation 0
-   and 1%, fixture and noise depth (bit-equal); the supersampled polylines
-   kernel against its plain version on the same 12 frames, sharp and soft,
-   divergence +4.5% with separation 0 and -4.5% with 1%, fixture and noise
-   depth (colour sums bit-equal); the flash attention against
+   and 1%, fixture and noise depth, through both entries (bit-equal; the
+   columns whose candidate list overflowed counted by the kernel and held
+   to the model's count; and with lists of capacity 2, which overflow on
+   most columns); the supersampled polylines kernel against its plain
+   version on the same 12 frames, sharp and soft, divergence +4.5% with
+   separation 0 and -4.5% with 1%, fixture and noise depth (colour sums
+   bit-equal; the fused entry's finished colour too); the flash attention against
    its plain version (`reference`) at the SD 1.5 UNet's bf16 self-attention
    shapes, [BH, Nq, Nk, D] = [16, 4096, 4096, 40] (level 0, CFG batch 2 x 8
    heads), [16, 1024, 1024, 80] (level 1) and [16, 4096, 8192, 40] (BN 'bi'),
@@ -62,15 +65,19 @@ any failure ends the run with a non-zero exit code:
    its plain version and `scaled_dot_product_attention` (a yardstick the
    port never calls) at the three shapes, the bf16 UNet CFG call, VAE
    encode and decode, and warp_inpaint per frame with its idle share; for
-   the kernels redesigned after their port (the gather and the flash
-   attention) their registers, spills and shared memory from `-Xptxas -v`,
-   and for the gather of a colour plane its bound.
+   the kernels redesigned after their port (the gather, the flash
+   attention and both polylines kernels) their registers, spills and
+   shared memory from `-Xptxas -v`, for the gather of a colour plane its
+   bound, and for the polylines kernels their recounted operations beside
+   their previous design's count. The polylines kernels are timed through
+   the fused entries their routes launch.
 
 `--kernel-times` only builds and times the flash kernel (beside
-scaled_dot_product_attention) and the gather (beside torch.gather) and
-prints one JSON line; with `--root DIR` it imports the package from DIR, so
-that a parent tree unpacked under `build/` and the change can be timed in
-turns in one call.
+scaled_dot_product_attention), the gather (beside torch.gather) and both
+polylines kernels (sharp and soft, through the entries that take x, and
+the fused entries where the tree has them) and prints one JSON line; with
+`--root DIR` it imports the package from DIR, so that a parent tree
+unpacked under `build/` and the change can be timed in turns in one call.
 
 It prints one `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Without CUDA, or without the package beside
@@ -386,42 +393,75 @@ def polylines_inputs(image255, depth255, div_pct: float, sep_pct: float):
 
 
 def check_polylines(dev, image255, depths) -> int:
+    """The exact polylines kernel against its plain version, uint8
+    bit-equal: both entries (the fused one, which forms x and |coord|
+    itself, against the same plain result on the x it forms), with the
+    columns whose candidate list overflowed counted by the kernel and held
+    to `candidate_lists`' count; and with lists of capacity 2, which
+    overflow on most columns."""
     import torch
-    from comfystereo_tpu_torch.kernels import polylines_exact as pk
-    count = 0
+    from comfystereo_tpu_torch.kernels import _common, polylines_exact as pk
+    count, over = 0, {}
     for kind, d in depths.items():
         for sharp in (True, False):
             for sep in SEP_PCTS:
                 for sign in (1.0, -1.0):
-                    x, coord, colors, max_disp = polylines_inputs(
-                        image255, d, sign * DIV_PCT, sign * sep + 0.0)
+                    div_pct, sep_pct = sign * DIV_PCT, sign * sep + 0.0
+                    x, coord, colors, max_disp = polylines_inputs(image255, d, div_pct,
+                                                                  sep_pct)
+                    sep_px = sep_pct / 100.0 * x.shape[-1]
+                    if not torch.equal(_common.point_x(coord, sep_px), x):
+                        raise AssertionError("point_x differs from the route's x")
                     cl = coord.abs()
-                    got = pk.polylines_exact_rows(x, cl, colors, sharp=sharp,
-                                                  max_pieces=12, max_disp=max_disp)
-                    sync()
+                    lengths = pk.candidate_lists(x, sharp, max_disp)[0]
                     want = pk.polylines_exact_rows_plain(x, cl, colors, sharp, 12, max_disp)
                     sync()
-                    if not torch.equal(got, want):
-                        bad = float((got != want).float().mean())
-                        raise AssertionError(
-                            f"polylines kernel differs from plain ({kind}, sharp "
-                            f"{sharp}, div {sign * DIV_PCT}%, sep {sep}%): {bad:.6f}")
-                    count += 1
+                    caps = (pk.LIST_CAP, 2) if sep == 0.0 and sign > 0 else (pk.LIST_CAP,)
+                    runs = [("rows", cap) for cap in caps] + [("fused", pk.LIST_CAP)]
+                    for entry, cap in runs:
+                        ov = torch.zeros(1, dtype=torch.int32, device=dev)
+                        kw = dict(sharp=sharp, max_pieces=12, max_disp=max_disp,
+                                  list_cap=cap, overflow=ov)
+                        got = (pk.polylines_exact_rows(x, cl, colors, **kw) if entry == "rows"
+                               else pk.polylines_exact_rows_fused(coord, colors, sep_px, **kw))
+                        sync()
+                        if not torch.equal(got, want):
+                            bad = float((got != want).float().mean())
+                            raise AssertionError(
+                                f"polylines kernel ({entry}, list_cap {cap}) differs from "
+                                f"plain ({kind}, sharp {sharp}, div {div_pct}%, sep "
+                                f"{sep_pct}%): {bad:.6f}")
+                        expect = int((lengths > cap).sum())
+                        if int(ov) != expect:
+                            raise AssertionError(f"polylines kernel overflowed {int(ov)} "
+                                                 f"columns at list_cap {cap}, expected {expect}")
+                        over[(kind, sharp, cap)] = over.get((kind, sharp, cap), 0) + expect
+                        count += 1
+                    del got, want, lengths
         log(f"  polylines {kind}: uint8 bit-equal to plain on {tuple(x.shape)} rows, "
-            "sharp and soft, div +-4.5%, sep 0 and 1%")
+            "sharp and soft, div +-4.5%, sep 0 and 1%, both entries; columns over the "
+            "list capacity: " + ", ".join(
+                f"{'sharp' if sh else 'soft'} cap {cap} {v}"
+                for (k, sh, cap), v in over.items() if k == kind))
+    torch.cuda.empty_cache()
     return count
 
 
 def check_polylines_ss(image255, depths) -> int:
     """The supersampled polylines kernel against its plain version: colour
-    sums bit-equal (S = 8, K = 4)."""
+    sums bit-equal (S = 8, K = 4); and the fused entry, which forms x and
+    finishes the colour itself, against the plain composition on the same
+    x, bit-equal."""
     import torch
-    from comfystereo_tpu_torch.kernels import polylines as pk
+    from comfystereo_tpu_torch.kernels import _common, polylines as pk
     count = 0
     for kind, d in depths.items():
         for sharp in (True, False):
             for div, sep in ((DIV_PCT, 0.0), (-DIV_PCT, 1.0)):
                 x, coord, colors, max_disp = polylines_inputs(image255, d, div, sep)
+                sep_px = sep / 100.0 * x.shape[-1]
+                if not torch.equal(_common.point_x(coord, sep_px), x):
+                    raise AssertionError("point_x differs from the route's x")
                 kw = dict(sharp=sharp, samples=8, k_candidates=4, max_disp=max_disp)
                 got = pk.polylines_scanline(x, coord, colors, **kw)
                 sync()
@@ -433,10 +473,16 @@ def check_polylines_ss(image255, depths) -> int:
                         f"{sharp}, div {div}%, sep {sep}%): max |err| "
                         f"{float((got - want).abs().max())} on "
                         f"{float((got != want).float().mean()):.6f} of sums")
-                count += 1
-                del got, want
+                fused = pk.polylines_scanline_fused(coord, colors, sep_px, **kw)
+                sync()
+                if not torch.equal(fused, torch.trunc(torch.clamp(want / 8 + 0.5, 0.0, 255.0))):
+                    raise AssertionError(f"supersampled polylines fused entry differs from "
+                                         f"plain ({kind}, sharp {sharp}, div {div}%, sep {sep}%)")
+                count += 2
+                del got, want, fused
         log(f"  supersampled polylines {kind}: sums bit-equal to plain on "
-            f"{tuple(x.shape)} rows, sharp and soft, div +4.5% sep 0 and -4.5% sep 1%")
+            f"{tuple(x.shape)} rows, sharp and soft, div +4.5% sep 0 and -4.5% sep 1%; "
+            "fused entry bit-equal to the plain composition")
     torch.cuda.empty_cache()
     return count
 
@@ -466,16 +512,17 @@ REDESIGNED = {"gather": "PR 5", "flash_attention": "PR 5"}
 
 def ptxas_usage(name: str) -> str:
     """Registers, spill stores and static shared memory of each entry
-    function, from `-Xptxas -v` in the kernel's build log (the flash
-    kernel's instances by their template argument, its Q.K^T k-steps)."""
+    function, from `-Xptxas -v` in the kernel's build log, instances by
+    their template arguments (the flash kernel's Q.K^T k-steps; the
+    polylines kernels' <sharp, fused>)."""
     import re
     from comfystereo_tpu_torch.kernels import _build
     parts, fn, spill = [], "kernel", "?"
     for ln in _build.build_log(name).splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            k = re.search(r"ILi(\d+)EE", m.group(1))
-            fn = f"<{k.group(1)}>" if k else "kernel"
+            args = re.findall(r"L[bi](\d+)E", m.group(1))
+            fn = f"<{','.join(args)}>" if args else "kernel"
             spill = "?"
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
@@ -1113,7 +1160,8 @@ def phase_times(dev, launches, errs, smi: str, name: str,
                 n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
     import torch
     from comfystereo_tpu_torch import StereoConfig, stereo_pipeline
-    from comfystereo_tpu_torch.kernels import distance, gather, warp_kernel
+    from comfystereo_tpu_torch.kernels import (distance, gather, polylines, polylines_exact,
+                                               warp_kernel)
 
     key, (bw, flops, _, _) = peaks(name)
     imgs, deps = fixture_frames(n, h, w)
@@ -1178,20 +1226,34 @@ def phase_times(dev, launches, errs, smi: str, name: str,
             f"({k['bound_by']}, {key} peaks), plain {k['plain_ms']:.3f} ms{lib}, "
             f"{k['launches']} launches per {n}-frame chunk "
             f"({k['launches'] / n:.4f} per frame) [{smi}]")
+    for k in kernels:
+        if k["bound_ms"] > k["ms"]:
+            raise AssertionError(f"{k['name']}: bound {k['bound_ms']} ms above its time "
+                                 f"{k['ms']} ms: the count is wrong")
     log(f"  gather of [{n},3,{h},{w}] colour by a [{n},1,{h},{w}] plane: "
         f"{gather_t['plane_ms']:.4f} ms, bound {gather_t['plane_bytes'] / bw * 1e3:.4f} ms "
         f"(bytes, {gather_t['plane_bytes']:.4g}), torch.gather "
-        f"{gather_t['plane_library_ms']:.4f} ms; "
-        f"polylines soft: {poly_t['soft_ms']:.4f} ms/launch; sharp: pieces per "
-        f"pixel {poly_t['pieces_per_px']:.3f}, window {poly_t['window_mean']:.1f} "
-        f"columns per row, active candidates per piece {poly_t['active_per_piece']:.3f}, "
-        f"{poly_t['ops']:.4g} operations, {poly_t['bytes']:.4g} bytes [{smi}]")
-    log(f"  supersampled polylines soft: {ss_t['soft_ms']:.4f} ms/launch; sharp: "
-        f"{ss_t['ops']:.4g} operations ({ss_t['ops'] / (n * h * w):.1f} per pixel), "
-        f"{ss_t['bytes']:.4g} bytes, found share {ss_t['found_share']:.4f} [{smi}]")
-
-    log(f"  gather build [{smi}]: {ptxas_usage('gather')}; dynamic shared memory per CTA "
-        f"{gather.smem_bytes(w, w, 1)} B (keys), {gather.smem_bytes(w, w, 3)} B (plane)")
+        f"{gather_t['plane_library_ms']:.4f} ms [{smi}]")
+    log(f"  polylines (fused entry) soft: {poly_t['soft_ms']:.4f} ms/launch; sharp entry "
+        f"taking x: {poly_t['rows_ms']:.4f} ms; sharp: pieces per pixel "
+        f"{poly_t['pieces_per_px']:.3f}, row window {poly_t['window_mean']:.1f} columns, "
+        f"walk {poly_t['steps_mean']:.2f} steps per column, list {poly_t['list_mean']:.3f} "
+        f"entries per column (max {poly_t['list_max']}, {poly_t['over_cap']} columns over "
+        f"capacity), active candidates per piece {poly_t['active_per_piece']:.3f}, "
+        f"{poly_t['ops']:.4g} operations (previous design: "
+        f"{PREVIOUS_OPS['polylines_exact_rows']:.4g}), {poly_t['bytes']:.4g} bytes [{smi}]")
+    log(f"  supersampled polylines (fused entry) soft: {ss_t['soft_ms']:.4f} ms/launch; "
+        f"sums entry taking x, sharp: {ss_t['rows_ms']:.4f} ms; sharp: {ss_t['ops']:.4g} "
+        f"operations ({ss_t['ops'] / (n * h * w):.1f} per pixel; previous design: "
+        f"{PREVIOUS_OPS['polylines_scanline']:.4g}), {ss_t['bytes']:.4g} bytes, found share "
+        f"{ss_t['found_share']:.4f}, winners looked for and found "
+        f"{ss_t['scans_per_column']:.3f} times per column, building "
+        f"{ss_t['built_per_column']:.3f} candidates [{smi}]")
+    for mod in ("gather", "polylines_exact", "polylines"):
+        log(f"  {mod} build [{smi}]: {ptxas_usage(mod)}")
+    log(f"  dynamic shared memory per CTA [{smi}]: gather {gather.smem_bytes(w, w, 1)} B "
+        f"(keys), {gather.smem_bytes(w, w, 3)} B (plane); polylines_exact "
+        f"{polylines_exact.smem_bytes(w)} B; polylines {polylines.smem_bytes(w, 8)} B")
 
     pipeline = {}
     depth01 = depth255 / 255.0
@@ -1238,98 +1300,117 @@ def gather_times(dev, n: int, h: int, w: int):
     }
 
 
+# Operations that the kernels' previous designs counted on the same input
+# (the exact kernel's per-piece window walks, the supersampled kernel's
+# per-sample rebuilds), printed beside the recount.
+PREVIOUS_OPS = {"polylines_exact_rows": 1.662e10, "polylines_scanline": 1.709e10}
+
+
 def polylines_times(image255, depth255):
-    """The polylines kernel (sharp, the node's fill; and soft) and its plain
-    version on the left eye's rows at 1080p, with the bytes (x, closeness and
-    colour in, colour out: 4 B each per pixel and channel) and the operations
-    of the sharp call on this input (`polylines_work`)."""
+    """The exact polylines kernel on the left eye's rows at 1080p: the fused
+    entry the route launches (sharp, the node's fill; and soft), the entry
+    that takes x, and the plain composition, with the fused entry's bytes
+    (offset and colour in, colour out: 4 B each per pixel and channel, 28 B
+    per pixel) and the operations of the sharp call on this input
+    (`polylines_work`)."""
     from comfystereo_tpu_torch.kernels import polylines_exact as pk
     x, coord, colors, max_disp = polylines_inputs(image255, depth255, DIV_PCT, 0.0)
     cl = coord.abs()
     kw = dict(max_pieces=12, max_disp=max_disp)
-    ms = time_ms(lambda: pk.polylines_exact_rows(x, cl, colors, sharp=True, **kw))
-    soft_ms = time_ms(lambda: pk.polylines_exact_rows(x, cl, colors, sharp=False, **kw))
-    plain_ms = time_ms(lambda: pk.polylines_exact_rows_plain(x, cl, colors, True, 12,
-                                                             max_disp), iters=2, warmup=1)
+    ms = time_ms(lambda: pk.polylines_exact_rows_fused(coord, colors, 0.0, sharp=True, **kw))
+    soft_ms = time_ms(lambda: pk.polylines_exact_rows_fused(coord, colors, 0.0, sharp=False,
+                                                            **kw))
+    rows_ms = time_ms(lambda: pk.polylines_exact_rows(x, cl, colors, sharp=True, **kw))
+    plain_ms = time_ms(lambda: pk.polylines_exact_rows_fused_plain(coord, colors, 0.0, True, 12,
+                                                                   max_disp), iters=2, warmup=1)
     work = polylines_work(x, max_disp, True, colors.shape[-1])
-    nbytes = 4.0 * (x.numel() + cl.numel() + 2 * colors.numel())
-    return {"ms": ms, "soft_ms": soft_ms, "plain_ms": plain_ms, "bytes": nbytes, **work}
+    nbytes = 4.0 * (coord.numel() + 2 * colors.numel())
+    return {"ms": ms, "soft_ms": soft_ms, "rows_ms": rows_ms, "plain_ms": plain_ms,
+            "bytes": nbytes, **work}
 
 
 def polylines_ss_times(image255, depth255):
-    """The supersampled polylines kernel (sharp, S = 8, K = 4; and soft) and
-    its plain version on the left eye's rows at 1080p, with the bytes (x,
-    coord and colour in, colour sums out: 4 B each per pixel and channel)
-    and the operations of the sharp call on this input (`polylines_ss_work`)."""
+    """The supersampled polylines kernel (S = 8, K = 4) on the left eye's
+    rows at 1080p: the fused entry the route launches (sharp; and soft), the
+    sums entry, and the plain composition, with the fused entry's bytes (28
+    B per pixel, as the exact kernel's) and the operations of the sharp call
+    on this input (`polylines_ss_work`)."""
     from comfystereo_tpu_torch.kernels import polylines as pk
     x, coord, colors, max_disp = polylines_inputs(image255, depth255, DIV_PCT, 0.0)
     kw = dict(samples=8, k_candidates=4, max_disp=max_disp)
-    ms = time_ms(lambda: pk.polylines_scanline(x, coord, colors, sharp=True, **kw))
-    soft_ms = time_ms(lambda: pk.polylines_scanline(x, coord, colors, sharp=False, **kw))
-    plain_ms = time_ms(lambda: pk.polylines_scanline_plain(x, coord, colors, sharp=True, **kw),
-                       iters=3, warmup=1)
+    ms = time_ms(lambda: pk.polylines_scanline_fused(coord, colors, 0.0, sharp=True, **kw))
+    soft_ms = time_ms(lambda: pk.polylines_scanline_fused(coord, colors, 0.0, sharp=False, **kw))
+    rows_ms = time_ms(lambda: pk.polylines_scanline(x, coord, colors, sharp=True, **kw))
+    plain_ms = time_ms(lambda: pk.polylines_scanline_fused_plain(coord, colors, 0.0, sharp=True,
+                                                                 **kw), iters=3, warmup=1)
     work = polylines_ss_work(x, coord, max_disp, True, colors.shape[-1])
-    nbytes = 4.0 * (x.numel() + coord.numel() + 2 * colors.numel())
-    return {"ms": ms, "soft_ms": soft_ms, "plain_ms": plain_ms, "bytes": nbytes, **work}
+    nbytes = 4.0 * (coord.numel() + 2 * colors.numel())
+    return {"ms": ms, "soft_ms": soft_ms, "rows_ms": rows_ms, "plain_ms": plain_ms,
+            "bytes": nbytes, **work}
 
 
 def polylines_ss_work(x, coord, max_disp: int, sharp: bool, c: int, samples: int = 8,
                       k: int = 4):
     """The float operations (adds, products, divisions, compares, min/max)
-    csrc/polylines.cu does on rows `x`, counted from its code and this input:
+    the fused entry of csrc/polylines.cu does on rows `x`, counted from its
+    code and this input:
+    - per pixel: x (3 adds) and the finish (5 per channel);
     - per slot of the W + 1: the endpoints (2), the member and order tests
       (5), sharp the flat tops (2) and their min/max (2), and the two scans'
       min/max (4);
     - per column: the two searches' compares (2 per round, and col + 1) and
-      the candidates' hit keys (between: 2 ends, 2 member tests, x1 > x0;
-      within: 2 ends and 2 tests) for both groups;
-    - per column and sample: the sample position (3); per group the key
-      compares (one per candidate), the winner's rebuild (5, where a
-      candidate is hit: counted from this input), denom (3), ip (4), covered
-      (2), closeness (4) and 3 per channel; the combine (1) and the sums (C)."""
+      the two groups' bounds (8);
+    - per column and sample: the sample position (1); per group the test of
+      its kept winner (1), ip (4), covered (2) and closeness (4); the
+      combine (1), the chosen group's colour (3 per channel) and the sums
+      (C);
+    - where a group's winner is looked for and one is hit (the first
+      sample, and each sample where its first hit moves to another
+      candidate: counted from this input by `hit_indices`): the rebuild with
+      its denominator (8), and 10 (ends, member and order tests, the hit
+      test) for each candidate built on the way, in sweep order from the
+      first (downward) or from the one after the old winner (upward)."""
     import torch
     from comfystereo_tpu_torch.kernels import polylines as pk
     n, w = x.shape
     rounds = pk.search_rounds(max_disp)
-    n_cands = 2 * k if sharp else k
-    e_hi, e_lo = pk.endpoint_streams(x, coord, sharp)
-    bases = (pk.search(torch.cummax(e_hi, -1).values, max_disp, True),
-             pk.search(torch.cummin(e_lo.flip(-1), -1).values.flip(-1), max_disp, False))
-    del e_hi, e_lo
-    cols = torch.arange(w, dtype=torch.float32, device=x.device)
-    found = 0.0
-    for base, up in zip(bases, (True, False)):
-        # one stand-in colour channel: the keys need only the ends and members
-        cands = pk.candidates(base, x, coord.abs(), coord, x[..., None], sharp, k, up)
-        keys = [torch.where(mem & (x1 > x0), x1 if up else x0,
-                            -float("inf") if up else float("inf"))
-                for x0, x1, _, _, _, _, mem in cands]
-        del cands
-        ext = torch.stack(keys).amax(0) if up else torch.stack(keys).amin(0)
-        del keys
+    up, dn = pk.hit_indices(x, coord, sharp, samples, k, max_disp)
+    scans, built, found = 0.0, 0.0, 0.0
+    for idx, upward in ((up, True), (dn, False)):
+        idx = idx.long()
+        found += float((idx >= 0).sum())
         for t in range(samples):
-            s = cols + pk.sample_offset(t, samples)
-            found += float(((ext > s) if up else (ext < s)).sum())
+            cur = idx[t]
+            looked = (cur >= 0) if t == 0 else (cur >= 0) & (cur != idx[t - 1])
+            start = (idx[t - 1] + 1).clamp(min=0) if upward and t > 0 else 0
+            scans += float(looked.sum())
+            built += float(((cur - start + 1) * looked).sum())
+    del up, dn
+    per_pixel = 3 + 5 * c
     per_slot = 15.0 if sharp else 11.0
-    per_column = 2 * rounds + 1 + 2 * (k * (9 if sharp else 5))
-    per_group_sample = n_cands + 3 + 4 + 2 + 4 + 3 * c
-    per_sample = 3 + 2 * per_group_sample + 1 + c
-    ops = (n * (w + 1) * per_slot + n * w * per_column + n * w * samples * per_sample
-           + 5.0 * found)
-    return {"ops": ops, "found_share": found / (2.0 * n * w * samples)}
+    per_column = 2 * rounds + 1 + 8
+    per_sample = 1 + 2 * (1 + 4 + 2 + 4) + 1 + 3 * c + c
+    ops = (n * w * per_pixel + n * (w + 1) * per_slot + n * w * per_column
+           + n * w * samples * per_sample + 8.0 * scans + 10.0 * built)
+    return {"ops": ops, "found_share": found / (2.0 * n * w * samples),
+            "scans_per_column": scans / (n * w), "built_per_column": built / (n * w)}
 
 
 def polylines_work(x, max_disp: int, sharp: bool, c: int):
-    """The float operations csrc/polylines_exact.cu does on rows `x`, counted
-    from its code and this input:
-    - the breakpoint walk, per column and in-row window step: the source's
-      points and their landing tests (sharp: 2 adds and 4 compares; soft: 2
-      compares), and 24 min/max for every point that lands in the row;
+    """The float operations the fused entry of csrc/polylines_exact.cu does
+    on rows `x`, counted from its code and this input:
+    - per pixel: x and |coord| (4), m and its ranges (4), the finish (3 per
+      channel);
+    - the walk, per column and step of its warp's window: the source's
+      points and the list tests (sharp: 2 adds and 4 compares; soft: the
+      landing and list tests, 4 compares); sharp, per listed flat top, the
+      landing tests of its two points (4); and 24 min/max for every point
+      that lands in the row;
     - per valid piece: its geometry (6), the two sentinels' activity tests
       (4), the winner choice (1) and the accumulation (6 per channel); per
-      in-row window step the candidates' activity tests (sharp: 3 adds for
-      the endpoints and 2 compares for each of the flat and the connecting
-      segment; soft: 1 add and 2 compares);
+      entry of the column's candidate list its ends and activity test (4);
+      a column whose list overflowed (none on the fixture) is counted by its
+      list;
     - per active candidate, which alone goes on to the blend: the division
       and closeness blend (7) and the winner and fallback tests (5)."""
     import torch
@@ -1338,7 +1419,7 @@ def polylines_work(x, max_disp: int, sharp: bool, c: int):
     hw = 0.45 if sharp else 0.0
     cols = torch.arange(w, device=x.device)
     lo, hi = pk.window(x, max_disp)                              # [n, 1]
-    steps = (torch.minimum(hi, w - 1 - cols) - torch.maximum(lo, -cols) + 1).clamp(min=0)
+    lengths, flats, steps = pk.candidate_lists(x, sharp, max_disp)
     pts = torch.cat([x - hw, x + hw], dim=-1) if sharp else x
     landed = float(((pts >= 0) & (pts < w)).sum())
     centers, _, valids = pk.piece_geometry(x, sharp, 12, max_disp)
@@ -1361,12 +1442,16 @@ def polylines_work(x, max_disp: int, sharp: bool, c: int):
                     & (nxt - hw >= center)).float()
         pieces += valid.float()
         active += torch.where(valid, act, 0.0)
-    step_ops = 7.0 if sharp else 3.0
-    ops = (float(steps.sum()) * (6.0 if sharp else 2.0) + 24.0 * landed
+    step_ops = 6.0 if sharp else 4.0
+    ops = (n * w * (8.0 + 3.0 * c) + float(steps.sum()) * step_ops + 4.0 * float(flats.sum())
+           + 24.0 * landed
            + float(pieces.sum()) * (11.0 + 6.0 * c)
-           + float((pieces * steps).sum()) * step_ops + 12.0 * float(active.sum()))
+           + 4.0 * float((pieces * lengths).sum()) + 12.0 * float(active.sum()))
     return {"ops": ops, "pieces_per_px": float(pieces.mean()),
             "window_mean": float((hi - lo + 1).float().mean()),
+            "steps_mean": float(steps.float().mean()),
+            "list_mean": float(lengths.float().mean()), "list_max": int(lengths.max()),
+            "over_cap": int((lengths > pk.LIST_CAP).sum()),
             "active_per_piece": float(active.sum() / pieces.sum())}
 
 
@@ -1475,13 +1560,14 @@ def device_busy(fn, iters: int = 3):
 
 def kernel_times(dev, smi: str, root: str) -> None:
     """The flash kernel beside scaled_dot_product_attention at FLASH_SHAPES,
-    and the gather beside torch.gather on the keys and the plane, for the
-    package under `root`: one JSON line, so that two trees (a parent's and
-    its change) can be timed in turns in one call on one card."""
+    the gather beside torch.gather on the keys and the plane, and both
+    polylines kernels, sharp and soft, at phase 5's shapes, for the package
+    under `root`: one JSON line, so that two trees (a parent's and its
+    change) can be timed in turns in one call on one card."""
     import torch
     import torch.nn.functional as F
     from comfystereo_tpu_torch.kernels import _build, flash_attention as fa, gather
-    _build.build(["flash_attention", "gather"])
+    _build.build(["flash_attention", "gather", "polylines_exact", "polylines"])
     out = {"root": root, "card": smi, "flash": {}, "gather": {}}
     for bh, nq, nk, d in FLASH_SHAPES:
         q, k, v = flash_inputs(dev, bh, nq, nk, d, seed=1)
@@ -1499,14 +1585,44 @@ def kernel_times(dev, smi: str, root: str) -> None:
         "keys_torch_gather_ms": time_ms(lambda: torch.gather(keys, -1, idx64)),
         "plane_ms": time_ms(lambda: gather.bounded_take_along_w(planes, idx_plane, disp)),
         "plane_torch_gather_ms": time_ms(lambda: torch.gather(planes, -1, plane64))}
+    del keys, idx, planes, idx_plane, plane64, idx64
+    out["polylines"] = polylines_kernel_times(dev)
     print(json.dumps({"kernel_times": out}), flush=True)
+
+
+def polylines_kernel_times(dev):
+    """ms per launch of both polylines kernels on the left eye's rows of 12
+    frames at 1080p (phase 5's inputs), sharp and soft: the entries that
+    take x (every tree has them) and, where the tree has them, the fused
+    entries that take the offsets."""
+    import torch
+    from comfystereo_tpu_torch.kernels import polylines as ss, polylines_exact as ex
+    imgs, deps = fixture_frames(FRAMES, HEIGHT, WIDTH)
+    image255 = torch.from_numpy(imgs).to(dev).float()
+    x, coord, colors, max_disp = polylines_inputs(
+        image255, torch.from_numpy(deps).to(dev).float(), DIV_PCT, 0.0)
+    cl = coord.abs()
+    fused = hasattr(ex, "polylines_exact_rows_fused")
+    out = {}
+    for sharp, mode in ((True, "sharp"), (False, "soft")):
+        kw = dict(sharp=sharp, max_pieces=12, max_disp=max_disp)
+        skw = dict(sharp=sharp, samples=8, k_candidates=4, max_disp=max_disp)
+        out[f"exact_{mode}_ms"] = time_ms(lambda: ex.polylines_exact_rows(x, cl, colors, **kw))
+        out[f"supersampled_{mode}_ms"] = time_ms(
+            lambda: ss.polylines_scanline(x, coord, colors, **skw))
+        if fused:
+            out[f"exact_fused_{mode}_ms"] = time_ms(
+                lambda: ex.polylines_exact_rows_fused(coord, colors, 0.0, **kw))
+            out[f"supersampled_fused_{mode}_ms"] = time_ms(
+                lambda: ss.polylines_scanline_fused(coord, colors, 0.0, **skw))
+    return out
 
 
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel-times", action="store_true",
-                    help="only time the flash and gather kernels (one JSON line)")
+                    help="only time the flash, gather and polylines kernels (one JSON line)")
     ap.add_argument("--root", default=HERE,
                     help="import comfystereo_tpu_torch from this directory "
                          "(default: beside chip_smoke.py)")

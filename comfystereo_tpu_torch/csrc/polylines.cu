@@ -1,12 +1,15 @@
 // Supersampled polylines renderer of image rows (the legacy polylines_soft /
 // polylines_sharp fills and the hybrid_edge_plus backfill when
-// polylines_exact=False): colour sums over S sub-samples, float32 out.
+// polylines_exact=False): colour sums over S sub-samples, float32 out, or
+// through the fused entry the finished uint8-valued colour.
 //
 // Replaces the Pallas kernel `polylines_scanline` / `_poly_kernel`
 // (comfystereo_tpu/pallas/polylines_kernel.py) and computes what it computes,
 // in its float32 expression forms, for one image row per CTA:
 //
-//   1. the row's x, coord and colour planes go to shared memory;
+//   1. the row's x and coord go to shared memory (the fused entry forms x
+//      from coord: x = ((col + 0.5) + coord) + sep), and the S sample
+//      offsets (t + 0.5) / S;
 //   2. on the row's W + 1 slots, each thread builds its contiguous chunk of
 //      the two endpoint streams (right endpoints of the positive group's
 //      member segments, left endpoints of the negative group's), and a chunk
@@ -15,28 +18,43 @@
 //   3. per column (strided over the threads): the two windowed binary
 //      searches of the Pallas kernel's fixed number of rounds, unfrozen
 //      (`search_up`, `search_dn`), give each group's base slot;
-//   4. each group's 2K (sharp) or K (soft) candidate segments, in the sweep
-//      order (upward: between then within; downward: within then between),
-//      are reduced to one key each in registers: the right end (upward) or
-//      left end (downward) of a member segment with x1 > x0, else -inf /
-//      +inf. A sample s hits candidate j where key > s (upward) or key < s
-//      (downward), which is the kernel's `hit`;
-//   5. per sample s = col + (t + 0.5) / S, t = 0..S-1 in order: each group's
-//      first hit is rebuilt from shared memory (its ends, closenesses and
-//      colour columns, by the same expressions that made its key) and
-//      interpolated; the closer covering group wins, with the kernel's
-//      `neither` fallback; the colour is added to the sum.
+//   4. per sample s = col + (t + 0.5) / S, t = 0..S-1 in order, each group's
+//      first hit: the first of its 2K (sharp) or K (soft) candidate
+//      segments, in the sweep order (upward: between then within; downward:
+//      within then between), that is a member segment with x1 > x0 whose
+//      right end (upward) lies above s or whose left end (downward) lies
+//      below it, which is the kernel's `hit`. s grows with t, so the upward
+//      group's hits only drop out and its first hit only moves later, and
+//      the downward group's hits only join and its first hit only moves
+//      earlier. Each group therefore keeps its winner (ends, closenesses,
+//      denominator, and its two colours, read from device memory through
+//      the read-only path) in registers with the sample at which it can
+//      change (upward: its own right end; downward: the least left end
+//      before it), and looks again only there: not at all where the
+//      group's bound shows that none is hit (the largest e_hi, or least
+//      e_lo, of its K slots before the scans: the largest right, or least
+//      left, end of its candidates that may be hit), else by building the
+//      candidates from shared memory in sweep order until one is hit
+//      (upward from the one after the old winner);
+//   5. per sample the covering groups' winners are interpolated by the
+//      kernel's expressions, the closer covering group wins (closenesses
+//      only where both cover), with the kernel's `neither` fallback, and
+//      the colour is added to the sum; the fused entry ends with
+//      trunc(clip(sum / S + 0.5, 0, 255)), S divided in IEEE arithmetic.
 //
-// Bound on Hopper: bytes and operations are of the same size. Per pixel it
-// moves 32 bytes (x, coord and three colours in, three sums out); per pixel
-// and sample it tests the two groups' keys up to their first hits and blends
-// the two winners (an IEEE division and 4 + 3C products and sums each).
-// chip_smoke.py (polylines_ss_work) counts both from this code and its
-// inputs. The TPU kernel gathered candidate points with per-vreg dynamic
-// gathers and rebuilt every candidate for every sample; here the candidates'
-// hit tests are one compare each on register keys, and only the two winners
-// touch shared memory. Built with -fmad=false, never fast math: the
-// division and every product and sum round as the plain version's.
+// Bound on Hopper: bytes, with operations close behind. Per pixel it moves
+// 28 bytes through the fused entry (offset and three colours in, three
+// out; 32 through the sums entry, which also reads x); per pixel and sample
+// it tests each group's winner, interpolates the covering ones (an IEEE
+// division each) and blends one colour; the searches, and the candidates
+// built where a winner is looked for, are per column. chip_smoke.py
+// (polylines_ss_work) counts these from this code and its inputs. The TPU
+// kernel gathered candidate points with per-vreg dynamic gathers and
+// rebuilt every candidate for every sample; here a group's winner is built
+// once for the samples it serves, and its colours come from device memory,
+// which keeps shared memory at 6W floats per row. Built with -fmad=false,
+// never fast math: the divisions and every product and sum round as the
+// plain version's.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -47,11 +65,11 @@ namespace {
 using cs::kThreads;
 constexpr int kK = 4;  // k_candidates, the K of the JAX package
 
-struct Row {  // one row staged in shared memory
+struct Row {  // one row staged in shared memory, its colours in device memory
   const float* x;
   const float* co;
-  const float* col;  // c planes of w floats
-  int w;
+  const float* img;  // [w, c] HWC
+  int w, c;
   float hw;  // half width of a pixel's flat top: 0.45 sharp, 0 soft
 };
 
@@ -63,29 +81,27 @@ struct Seg {
 };
 
 // Candidate k of a group (`iter_candidates`): the segment from point
-// base + k - 1 to point base + k (within: the flat top of point base + k).
+// base + k - 1 to point base + k (within: the flat top of point base + k),
+// with points pl = clamp(base + k - 1) and pr = clamp(base + k) given by
+// their x and coord.
 template <bool kUpward>
-__device__ __forceinline__ Seg segment(const Row& r, int base, int k, bool within) {
-  const int w = r.w;
-  const int slot = base + k;
+__device__ __forceinline__ Seg segment(int w, float hw, int slot, float xl, float col,
+                                       float xr, float cor, int pl, int pr, bool within) {
   const bool sl = slot == 0, sr = slot == w;
-  const int pl = min(max(slot - 1, 0), w - 1), pr = min(max(slot, 0), w - 1);
-  const float xr = r.x[pr], cor = r.co[pr];
   const bool m_r = (kUpward ? cor : -cor) >= 0.0f;
   Seg s;
   if (within) {
-    s.x0 = xr - r.hw;
-    s.x1 = xr + r.hw;
+    s.x0 = xr - hw;
+    s.x1 = xr + hw;
     s.cl0 = s.cl1 = fabsf(cor);
     s.c_l = s.c_r = pr;
     s.ok = m_r && slot < w && slot >= 0 && s.x1 > s.x0;
     return s;
   }
   const float wf = static_cast<float>(w);
-  const float col = r.co[pl];
   const bool m_l = (kUpward ? col : -col) >= 0.0f;
-  s.x0 = sl ? -1.0f * wf : r.x[pl] + r.hw;
-  s.x1 = sr ? 2.0f * wf : xr - r.hw;
+  s.x0 = sl ? -1.0f * wf : xl + hw;
+  s.x1 = sr ? 2.0f * wf : xr - hw;
   s.cl0 = sl ? 0.0f : fabsf(col);
   s.cl1 = sr ? 0.0f : fabsf(cor);
   s.c_l = sl ? pr : pl;
@@ -94,62 +110,89 @@ __device__ __forceinline__ Seg segment(const Row& r, int base, int k, bool withi
   return s;
 }
 
-// Candidate j in the group's sweep order: sharp pairs (between, within)
-// upward and (within, between) downward; downward offsets count 0, -1, ...
+// A group's winner, kept across samples: its first hit in sweep order,
+// found by building the candidates from shared memory in that order
+// (sharp pairs (between, within) upward and (within, between) downward;
+// downward offsets count 0, -1, ...) until one is hit.
 template <bool kSharp, bool kUpward>
-__device__ __forceinline__ Seg candidate(const Row& r, int base, int j) {
-  const int i = kSharp ? j >> 1 : j;
-  const bool within = kSharp && ((j & 1) == (kUpward ? 1 : 0));
-  return segment<kUpward>(r, base, kUpward ? i : -i, within);
-}
+struct Winner {
+  int hit = -2;       // index in sweep order; -1: none; -2: not yet looked for
+  float until;        // upward: its key; downward: the least key before it
+  float x0, x1, cl0, cl1, denom;
+  float a[3], b[3];   // colours of its left and right columns (0 when none)
 
-// One group's sample (`sweep`): covered, closeness, colour and its fallback
-// (the left colour), found.
-struct Pick {
-  bool covered, found;
-  float closeness;
-  float color[3], fallback[3];
+  // The first hit at sample s (`sweep`), kept from the previous sample
+  // unless s has passed the point where it can change. Upward, the
+  // candidates before a kept hit stay missed, so the search goes on after
+  // it; downward it starts again from the first.
+  // `bound`: the largest right end (upward) or least left end (downward)
+  // of the group's member segments with x1 > x0, which are its candidates'
+  // keys: where it does not pass s, no candidate is hit.
+  __device__ __forceinline__ void update(const Row& r, int base, float s, float bound) {
+    if (hit != -2 && (kUpward ? s < until : !(until < s))) return;
+    constexpr int kPer = kSharp ? 2 : 1;
+    const int from = kUpward && hit >= 0 ? hit + 1 : 0;
+    const bool none = kUpward ? !(bound > s) : !(bound < s);
+    float lim = none ? bound : INFINITY;
+    Seg g{0.0f, 1.0f, 0.0f, 0.0f, -1, -1, false};
+    hit = -1;
+    for (int i = from / kPer; i < kK && hit < 0 && !none; ++i) {
+      const int slot = base + (kUpward ? i : -i);
+      const int pl = min(max(slot - 1, 0), r.w - 1), pr = min(max(slot, 0), r.w - 1);
+      const float xl = r.x[pl], col = r.co[pl], xr = r.x[pr], cor = r.co[pr];
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        const int j = i * kPer + q;
+        if (j < from || hit >= 0) continue;
+        const bool within = kSharp && q == (kUpward ? 1 : 0);
+        const Seg c = segment<kUpward>(r.w, r.hw, slot, xl, col, xr, cor, pl, pr, within);
+        const float key = kUpward ? (c.ok ? c.x1 : -INFINITY) : (c.ok ? c.x0 : INFINITY);
+        if (kUpward ? key > s : key < s) {
+          hit = j;
+          g = c;
+        } else if (!kUpward) {
+          lim = fminf(lim, key);
+        }
+      }
+    }
+    until = kUpward ? (hit >= 0 ? g.x1 : INFINITY) : lim;
+    x0 = g.x0;
+    x1 = g.x1;
+    cl0 = g.cl0;
+    cl1 = g.cl1;
+    denom = fabsf(g.x1 - g.x0) < 1e-9f ? 1.0f : g.x1 - g.x0;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      if (ch >= r.c) break;
+      a[ch] = hit >= 0 ? __ldg(r.img + g.c_l * r.c + ch) : 0.0f;
+      b[ch] = hit >= 0 ? __ldg(r.img + g.c_r * r.c + ch) : 0.0f;
+    }
+  }
+
+  // Covered at s (`sweep`'s `covered`), and then ip.
+  __device__ __forceinline__ bool covers(float s, float& ip) const {
+    if (!(hit >= 0 && x0 < s && s < x1)) return false;
+    ip = fminf(fmaxf((s - x0) / denom, 0.0f), 1.0f);
+    return true;
+  }
 };
 
-template <bool kSharp, bool kUpward>
-__device__ __forceinline__ Pick pick(const Row& r, int base, const float (&keys)[2 * kK],
-                                     float s, int c) {
-  constexpr int kCands = kSharp ? 2 * kK : kK;
-  int hit = -1;
-#pragma unroll
-  for (int j = kCands - 1; j >= 0; --j) {  // the first hit in sweep order
-    if (kUpward ? keys[j] > s : keys[j] < s) hit = j;
-  }
-  Seg g{0.0f, 1.0f, 0.0f, 0.0f, -1, -1, false};
-  if (hit >= 0) g = candidate<kSharp, kUpward>(r, base, hit);
-  const float denom = fabsf(g.x1 - g.x0) < 1e-9f ? 1.0f : g.x1 - g.x0;
-  const float ip = fminf(fmaxf((s - g.x0) / denom, 0.0f), 1.0f);
-  Pick p;
-  p.found = hit >= 0;
-  p.covered = p.found && g.x0 < s && s < g.x1;
-  p.closeness = g.cl0 * (1.0f - ip) + g.cl1 * ip;
-#pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    if (ch >= c) break;
-    const float a = p.found ? r.col[ch * r.w + g.c_l] : 0.0f;
-    const float b = p.found ? r.col[ch * r.w + g.c_r] : 0.0f;
-    p.color[ch] = a * (1.0f - ip) + b * ip;
-    p.fallback[ch] = a;
-  }
-  return p;
-}
-
-template <bool kSharp>
+// kC: the channel count when it is 3 (the colour loops then unroll), 0 for
+// a count taken from c.
+template <bool kSharp, bool kFused, int kC>
 __global__ void __launch_bounds__(kThreads) polylines_kernel(
-    const float* __restrict__ xg, const float* __restrict__ cog,
-    const float* __restrict__ colors, float* __restrict__ out, int w, int c, int samples,
+    const float* __restrict__ xg, const float* __restrict__ cog, float sep,
+    const float* __restrict__ colors, float* __restrict__ out, int w, int c_arg, int samples,
     int max_disp, int rounds) {
+  const int c = kC ? kC : c_arg;
   extern __shared__ float smem[];
   float* s_x = smem;
   float* s_co = s_x + w;
-  float* s_col = s_co + w;
-  float* s_hi = s_col + c * w;  // prefix max of the positive group's e_hi, W + 1 slots
+  float* s_hi = s_co + w;       // prefix max of the positive group's e_hi, W + 1 slots
   float* s_lo = s_hi + w + 1;   // suffix min of the negative group's e_lo, W + 1 slots
+  float* s_off = s_lo + w + 1;  // the samples' offsets (t + 0.5) / S
+  float* s_ehi = s_off + samples;  // e_hi and e_lo of each slot, not scanned
+  float* s_elo = s_ehi + w + 1;
   __shared__ float s_scan[2 * kThreads];
 
   const long long row = blockIdx.x;
@@ -157,13 +200,14 @@ __global__ void __launch_bounds__(kThreads) polylines_kernel(
   const float hw = kSharp ? 0.45f : 0.0f;
   const float wf = static_cast<float>(w);
 
-  // 1. Stage the row.
+  // 1. Stage the row and the sample offsets.
   for (int i = tid; i < w; i += kThreads) {
-    s_x[i] = xg[row * w + i];
-    s_co[i] = cog[row * w + i];
+    const float co = cog[row * w + i];
+    s_co[i] = co;
+    s_x[i] = kFused ? ((static_cast<float>(i) + 0.5f) + co) + sep : xg[row * w + i];
   }
-  for (int i = tid; i < w * c; i += kThreads) {
-    s_col[(i % c) * w + i / c] = colors[row * w * c + i];
+  for (int t = tid; t < samples; t += kThreads) {
+    s_off[t] = (static_cast<float>(t) + 0.5f) / static_cast<float>(samples);
   }
   __syncthreads();
 
@@ -189,6 +233,8 @@ __global__ void __launch_bounds__(kThreads) polylines_kernel(
     run_hi = fmaxf(run_hi, e_hi);
     s_hi[j] = run_hi;
     s_lo[j] = e_lo;
+    s_ehi[j] = e_hi;
+    s_elo[j] = e_lo;
   }
   for (int j = j1 - 1; j >= j0; --j) {
     run_lo = fminf(run_lo, s_lo[j]);
@@ -202,8 +248,7 @@ __global__ void __launch_bounds__(kThreads) polylines_kernel(
   }
   __syncthreads();
 
-  const Row r{s_x, s_co, s_col, w, hw};
-  constexpr int kCands = kSharp ? 2 * kK : kK;
+  const Row r{s_x, s_co, colors + row * w * c, w, c, hw};
   for (int col = tid; col < w; col += kThreads) {
     const float colf = static_cast<float>(col);
 
@@ -226,29 +271,44 @@ __global__ void __launch_bounds__(kThreads) polylines_kernel(
     }
     const int idx_n = min(max(lo - 1, 0), w);
 
-    // 4. Hit keys of both groups' candidates.
-    float keys_p[2 * kK], keys_n[2 * kK];
+    // 4-5. The samples, in order (`t_body`). Only a covering group's ip,
+    // and both groups' closenesses only where both cover, are used.
+    Winner<kSharp, true> p;
+    Winner<kSharp, false> n;
+    // A slot's e_hi (e_lo) is the largest right (least left) end of its
+    // candidates that may be hit, so these bound each group's keys.
+    float hi4 = -INFINITY, lo4 = INFINITY;
 #pragma unroll
-    for (int j = 0; j < kCands; ++j) {
-      const Seg up = candidate<kSharp, true>(r, idx_p, j);
-      keys_p[j] = up.ok ? up.x1 : -INFINITY;
-      const Seg dn = candidate<kSharp, false>(r, idx_n, j);
-      keys_n[j] = dn.ok ? dn.x0 : INFINITY;
+    for (int i = 0; i < kK; ++i) {
+      if (idx_p + i <= w) hi4 = fmaxf(hi4, s_ehi[idx_p + i]);
+      if (idx_n - i >= 0) lo4 = fminf(lo4, s_elo[idx_n - i]);
     }
-
-    // 5. The samples, in order (`t_body`).
     float acc[3] = {0.0f, 0.0f, 0.0f};
     for (int t = 0; t < samples; ++t) {
-      const float s = colf + (static_cast<float>(t) + 0.5f) / static_cast<float>(samples);
-      const Pick p = pick<kSharp, true>(r, idx_p, keys_p, s, c);
-      const Pick n = pick<kSharp, false>(r, idx_n, keys_n, s, c);
-      const bool use_n = n.covered && (!p.covered || n.closeness > p.closeness);
-      const bool neither = !(p.covered || n.covered);
+      const float s = colf + s_off[t];
+      p.update(r, idx_p, s, hi4);
+      n.update(r, idx_n, s, lo4);
+      float ip_p = 0.0f, ip_n = 0.0f;
+      const bool cov_p = p.covers(s, ip_p);
+      const bool cov_n = n.covers(s, ip_n);
+      bool use_n = cov_n;
+      if (cov_p && cov_n) {
+        const float cl_p = p.cl0 * (1.0f - ip_p) + p.cl1 * ip_p;
+        const float cl_n = n.cl0 * (1.0f - ip_n) + n.cl1 * ip_n;
+        use_n = cl_n > cl_p;
+      }
+      const bool neither = !(cov_p || cov_n);
+      const float ip = use_n ? ip_n : ip_p;
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch) {
         if (ch >= c) break;
-        float v = use_n ? n.color[ch] : p.color[ch];
-        if (neither) v = p.found ? p.fallback[ch] : n.fallback[ch];
+        float v;
+        if (neither) {
+          v = p.hit >= 0 ? p.a[ch] : n.a[ch];
+        } else {
+          const float ca = use_n ? n.a[ch] : p.a[ch], cb = use_n ? n.b[ch] : p.b[ch];
+          v = ca * (1.0f - ip) + cb * ip;
+        }
         acc[ch] = acc[ch] + v;
       }
     }
@@ -256,7 +316,9 @@ __global__ void __launch_bounds__(kThreads) polylines_kernel(
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) {
       if (ch >= c) break;
-      o[ch] = acc[ch];
+      o[ch] = kFused ? truncf(fminf(fmaxf(acc[ch] / static_cast<float>(samples) + 0.5f, 0.0f),
+                                    255.0f))
+                     : acc[ch];
     }
   }
 }
@@ -269,18 +331,35 @@ int search_rounds(int max_disp) {
   return (r > 1 ? r : 1) + 1;
 }
 
-template <bool kSharp>
-int launch(const void* x, const void* co, const void* colors, void* out, int n, int w, int c,
-           int samples, int max_disp, void* stream) {
-  const size_t smem = (static_cast<size_t>(2 + c) * w + 2 * (static_cast<size_t>(w) + 1)) *
-                      sizeof(float);
-  cudaError_t err = cs::allow_dynamic_smem(polylines_kernel<kSharp>, smem);
+template <bool kSharp, bool kFused, int kC>
+int launch_c(const void* x, const void* co, float sep, const void* colors, void* out, int n,
+             int w, int c, int samples, int max_disp, void* stream) {
+  const size_t smem =
+      (2 * static_cast<size_t>(w) + 4 * (static_cast<size_t>(w) + 1) + samples) * sizeof(float);
+  cudaError_t err = cs::allow_dynamic_smem(polylines_kernel<kSharp, kFused, kC>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  polylines_kernel<kSharp><<<n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(co),
-      static_cast<const float*>(colors), static_cast<float*>(out), w, c, samples, max_disp,
-      search_rounds(max_disp));
+  polylines_kernel<kSharp, kFused, kC>
+      <<<n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(x), static_cast<const float*>(co), sep,
+          static_cast<const float*>(colors), static_cast<float*>(out), w, c, samples, max_disp,
+          search_rounds(max_disp));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kSharp, bool kFused>
+int launch(const void* x, const void* co, float sep, const void* colors, void* out, int n, int w,
+           int c, int samples, int max_disp, void* stream) {
+  return c == 3 ? launch_c<kSharp, kFused, 3>(x, co, sep, colors, out, n, w, c, samples,
+                                              max_disp, stream)
+                : launch_c<kSharp, kFused, 0>(x, co, sep, colors, out, n, w, c, samples,
+                                              max_disp, stream);
+}
+
+int check(int c, int samples, int k_candidates, int max_disp) {
+  if (c < 1 || c > 3 || k_candidates != kK || samples < 1 || max_disp < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
 }
 
 }  // namespace
@@ -292,9 +371,23 @@ extern "C" int cs_polylines_rows(const void* x, const void* coord, const void* c
                                  void* out, int n, int w, int c, int sharp, int samples,
                                  int k_candidates, int max_disp, void* stream) {
   if (n == 0 || w == 0) return 0;
-  if (c < 1 || c > 3 || k_candidates != kK || samples < 1 || max_disp < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return sharp ? launch<true>(x, coord, colors, out, n, w, c, samples, max_disp, stream)
-               : launch<false>(x, coord, colors, out, n, w, c, samples, max_disp, stream);
+  if (int err = check(c, samples, k_candidates, max_disp)) return err;
+  return sharp ? launch<true, false>(x, coord, 0.0f, colors, out, n, w, c, samples, max_disp,
+                                     stream)
+               : launch<false, false>(x, coord, 0.0f, colors, out, n, w, c, samples, max_disp,
+                                      stream);
+}
+
+// The fused entry: x = ((col + 0.5) + coord) + sep is formed in the kernel
+// (sep the separation in pixels as float32), and out receives
+// trunc(clip(sum / samples + 0.5, 0, 255)). Otherwise as cs_polylines_rows.
+extern "C" int cs_polylines_coord(const void* coord, float sep, const void* colors, void* out,
+                                  int n, int w, int c, int sharp, int samples,
+                                  int k_candidates, int max_disp, void* stream) {
+  if (n == 0 || w == 0) return 0;
+  if (int err = check(c, samples, k_candidates, max_disp)) return err;
+  return sharp ? launch<true, true>(nullptr, coord, sep, colors, out, n, w, c, samples,
+                                    max_disp, stream)
+               : launch<false, true>(nullptr, coord, sep, colors, out, n, w, c, samples,
+                                     max_disp, stream);
 }

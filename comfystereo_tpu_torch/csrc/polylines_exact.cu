@@ -6,43 +6,61 @@
 // XLA path `_exact_core` (comfystereo_tpu/ops/polylines_exact.py) computes,
 // in its float32 expression forms, for one image row per CTA:
 //
-//   1. the row's x and closeness go to shared memory, and the row's
-//      m = x - (col + 0.5) range (block reduction) gives the candidate window
-//      d = source - col in [floor(-max m) - 2, ceil(-min m) + 2], clamped to
-//      +-(max_disp + 4). Every segment that can be active at a column lies in
-//      it, so the per-row window finds what the XLA path's 64-row window does;
-//   2. breakpoints: each column walks the window and keeps, sorted in
-//      registers by a K-slot bubble insert, the K smallest points in
-//      [col, col + 1) (sharp mode: x - 0.45 and x + 0.45 of each source).
-//      Empty slots hold the right sentinel 2w. Any value >= col + 1 acts as
-//      that sentinel does (it clips the piece to col + 1 and ends the chain),
-//      so these slots equal the XLA path's sorted points q0 .. q0 + K - 1;
+//   1. the row's x and closeness go to shared memory (the fused entry forms
+//      them from the signed offsets: x = ((col + 0.5) + coord) + sep,
+//      cl = |coord|), with the m = x - (col + 0.5) range of the row (block
+//      reduction) and of each 32-column block. The row's range gives the
+//      candidate window d = source - col in [floor(-max m) - 2,
+//      ceil(-min m) + 2], clamped to +-(max_disp + 4); every segment that can
+//      be active at a column lies in it, so the per-row window finds what
+//      the XLA path's 64-row window does. Each warp narrows it by the same
+//      rule to the m range of the blocks its 32 columns can reach (sources
+//      col + d and col + d + 1 of the row window): no segment outside that
+//      can be active at those columns, nor put a point in them;
+//   2. one walk over the window per column, d ascending, collects
+//      - the candidate list: the flat (sharp only) and connecting segments
+//        with x0 < col + 1 and x1 >= col, flat before connecting, as
+//        (source << 1 | flat) in a per-thread stripe of shared memory. Every
+//        piece center c of the column has col <= c <= col + 1, and a segment
+//        is active at c when x0 < c <= x1, so no segment that any piece
+//        activates is left out, and the list keeps the XLA path's order;
+//      - the breakpoints: the K smallest points in [col, col + 1), sorted in
+//        registers by a K-slot bubble insert (soft: x of each source in the
+//        walk; sharp: x - 0.45 and x + 0.45 of the listed flat tops, which
+//        hold every such point). Empty slots hold the right sentinel 2w;
+//        any value >= col + 1 acts as that sentinel does (it clips the piece
+//        to col + 1 and ends the chain), so the slots equal the XLA path's
+//        sorted points q0 .. q0 + K - 1;
 //   3. pieces, with `_piece_geometry`'s forms: f = max(col, xq) + eps,
 //      t = min(col + 1, xq1) - eps, sig = t - f, center = f + 0.5 * sig;
 //      piece 0 starts at col + eps, and piece k > 0 is valid while
 //      xq < col + 1. Pieces past the first invalid one add 0.0 to an
 //      accumulator of at least 0.5 in the XLA path, so they are skipped;
 //   4. winner scan per valid piece, in `_winner_scan_xla`'s order: the left
-//      sentinel, the right sentinel, then d ascending (sharp: the flat
-//      segment before the connecting one); strict `clp > best_cl` from
-//      best_cl = -eps among 0 < ip < 1, and the lowest-x0 active segment as
-//      the fallback. The winner is kept as an identity (left colour column,
-//      ip, flat) and its colour is built once, col_l * (1 - ip) + col_r * ip,
-//      or col_l for a flat segment;
+//      sentinel, the right sentinel, then the list; strict `clp > best_cl`
+//      from best_cl = -eps among 0 < ip < 1, and the lowest-x0 active
+//      segment as the fallback. A column whose list outgrows its capacity
+//      scans, per piece, the sources from its first listed one to its last
+//      instead (the same segments in the same order, and inactive ones
+//      between them), and adds one to `overflow` when that is given. The
+//      winner is kept as an identity (left colour column, ip, flat) and its
+//      colour is built once, col_l * (1 - ip) + col_r * ip, or col_l for a
+//      flat segment;
 //   5. acc = 0.5 + sum over pieces of colour * sig, then trunc(clip(acc, 0, 255)).
 //
-// Bound on Hopper: bytes and operations give bounds of about the same size.
-// Per pixel it moves 32 bytes (x, closeness and three colours in, three
-// out). Per column, valid piece and in-row window step, sharp mode spends 3
-// adds and 4 compares on the activity tests of its two candidates; only the
-// active ones, one or two per piece, go on to the IEEE division and the
-// blend. chip_smoke.py (polylines_work) counts both on its inputs, from this
-// code. The TPU kernel rolled packed planes one lane per
-// step over a column tile and predicated piece counts per tile; here each
-// thread owns a column, keeps its breakpoints and winner state in registers,
-// and reads x and closeness from shared memory, where neighbouring threads
-// read neighbouring words at every step. Built with -fmad=false, never fast
-// math: ip's division and every product and sum round as the plain version's.
+// Bound on Hopper: bytes, with operations close behind. Per pixel it moves
+// 28 bytes through the fused entry (offset and three colours in, three
+// out; 32 through the entry that takes x and closeness). Per column and
+// step of the warp's window it spends 2 adds and 4 compares (sharp) on the
+// list tests, per listed flat top 4 compares on its points, and per valid
+// piece and list entry 2 adds and 2 compares; only the active entries, one
+// or two per piece, go on to the IEEE division and the blend.
+// chip_smoke.py (polylines_work) counts these on its inputs, from this
+// code. The TPU kernel rolled packed planes one lane per step over a column
+// tile and predicated piece counts per tile; here the list keeps the
+// per-piece scans to the few segments that can meet the column. Built with
+// -fmad=false, never fast math: ip's division and every product and sum
+// round as the plain version's.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -51,7 +69,9 @@
 namespace {
 
 using cs::kThreads;
-constexpr int kPieces = 12;  // max_pieces, the K of the JAX package
+constexpr int kPieces = 12;    // max_pieces, the K of the JAX package
+constexpr int kListCap = 16;   // entries of a column's candidate list
+constexpr int kBlock = 32;     // columns per block of the m ranges (one warp)
 constexpr float kEps = 1e-7f;
 
 struct Winner {
@@ -66,6 +86,8 @@ struct Scan {
   float fb_x0 = 1e30f;
   Winner fb{-1, 0.0f, true};
 
+  // Segment [x0, x1] with closenesses cl0, cl1 at its ends, taken when it is
+  // active at `center` (x0 < center <= x1).
   __device__ __forceinline__ void consider(float center, float x0, float x1, float cl0,
                                            float cl1, int id, bool flat) {
     if (!(x0 < center && x1 >= center)) return;  // not active
@@ -82,6 +104,19 @@ struct Scan {
       fb = Winner{id, ip, flat};
     }
   }
+
+  // Source cp's flat top [x - hw, x + hw] or its connecting segment
+  // [x + hw, x_next - hw]; closenesses are read only for an active one.
+  __device__ __forceinline__ void consider_source(float center, const float* s_x,
+                                                  const float* s_cl, int cp, bool flat,
+                                                  float hw) {
+    const float xc = s_x[cp];
+    const float x0 = flat ? xc - hw : xc + hw;
+    const float x1 = flat ? xc + hw : s_x[cp + 1] - hw;
+    if (!(x0 < center && x1 >= center)) return;
+    const float cl0 = s_cl[cp];
+    consider(center, x0, x1, cl0, flat ? cl0 : s_cl[cp + 1], cp, flat);
+  }
 };
 
 __device__ __forceinline__ void insert(float (&slots)[kPieces], float pv, float colf,
@@ -96,29 +131,63 @@ __device__ __forceinline__ void insert(float (&slots)[kPieces], float pv, float 
   }
 }
 
-template <bool kSharp>
-__global__ void __launch_bounds__(kThreads) polylines_exact_kernel(
-    const float* __restrict__ xg, const float* __restrict__ clg,
-    const float* __restrict__ colors, float* __restrict__ out, int w, int c,
-    int max_disp) {
+__device__ __forceinline__ void warp_min_max(float& lo, float& hi) {
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+}
+
+// kFused: a holds the signed offsets (coord) and x, cl are formed here;
+// otherwise a is x and b the closeness. kC: the channel count when it is 3
+// (the colour loops then unroll), 0 for a count taken from c. Five CTAs per
+// SM: ptxas then keeps 48 registers and spills a few bytes, which measured
+// faster than four CTAs at 61 registers.
+template <bool kSharp, bool kFused, int kC>
+__global__ void __launch_bounds__(kThreads, 5) polylines_exact_kernel(
+    const float* __restrict__ a, const float* __restrict__ b, float sep,
+    const float* __restrict__ colors, float* __restrict__ out, int w, int c_arg, int max_disp,
+    int list_cap, int* __restrict__ overflow) {
+  const int c = kC ? kC : c_arg;
   extern __shared__ float smem[];
+  const int nb = (w + kBlock - 1) / kBlock;
   float* s_x = smem;
-  float* s_cl = smem + w;
+  float* s_cl = s_x + w;
+  float* s_bmin = s_cl + w;  // per 32-column block: min and max of m
+  float* s_bmax = s_bmin + nb;
+  int* s_list = reinterpret_cast<int*>(s_bmax + nb);  // entry j of thread t at j * kThreads + t
   __shared__ float s_red[64];
 
   const long long row = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const float hw = kSharp ? 0.45f : 0.0f;
 
-  // 1. Stage the row; candidate window from its m range.
+  // 1. Stage the row; m ranges of the row and of each 32-column block.
   float lo = INFINITY, hi = -INFINITY;
-  for (int i = tid; i < w; i += kThreads) {
-    const float xv = xg[row * w + i];
-    s_x[i] = xv;
-    s_cl[i] = clg[row * w + i];
-    const float m = xv - (static_cast<float>(i) + 0.5f);
-    lo = fminf(lo, m);
-    hi = fmaxf(hi, m);
+  for (int i0 = 0; i0 < w; i0 += kThreads) {
+    const int i = i0 + tid;
+    float m_lo = INFINITY, m_hi = -INFINITY;
+    if (i < w) {
+      float xv, clv;
+      if (kFused) {
+        const float co = a[row * w + i];
+        xv = ((static_cast<float>(i) + 0.5f) + co) + sep;
+        clv = fabsf(co);
+      } else {
+        xv = a[row * w + i];
+        clv = b[row * w + i];
+      }
+      s_x[i] = xv;
+      s_cl[i] = clv;
+      m_lo = m_hi = xv - (static_cast<float>(i) + 0.5f);
+    }
+    warp_min_max(m_lo, m_hi);
+    if (lane == 0 && i0 + warp * kBlock < w) {
+      s_bmin[i0 / kBlock + warp] = m_lo;
+      s_bmax[i0 / kBlock + warp] = m_hi;
+    }
+    lo = fminf(lo, m_lo);
+    hi = fmaxf(hi, m_hi);
   }
   cs::block_min_max(lo, hi, s_red);  // also orders the staging stores
   const int r_static = max_disp + 4;
@@ -130,24 +199,75 @@ __global__ void __launch_bounds__(kThreads) polylines_exact_kernel(
   const float first_x = s_x[0] - hw, last_x = s_x[w - 1] + hw;
   const float cl_first = s_cl[0], cl_last = s_cl[w - 1];
   const float* img = colors + row * w * c;
+  int* list = s_list + tid;
 
-  for (int col = tid; col < w; col += kThreads) {
+  for (int c0 = 0; c0 < w; c0 += kThreads) {
+    const int cw = c0 + warp * kBlock;  // the warp's first column
+    if (cw >= w) break;                 // warp-uniform
+    // The warp's window: the row window narrowed to the m range of the
+    // blocks holding sources cw + d_lo .. cw + 31 + d_hi + 1.
+    const int src_lo = max(cw + d_lo, 0), src_hi = min(cw + kBlock + d_hi, w - 1);
+    float wlo = INFINITY, whi = -INFINITY;
+    for (int bk = src_lo / kBlock; bk <= src_hi / kBlock && src_lo <= src_hi; ++bk) {
+      wlo = fminf(wlo, s_bmin[bk]);
+      whi = fmaxf(whi, s_bmax[bk]);
+    }
+    const bool any = src_lo <= src_hi;
+    const int dl = any ? max(static_cast<int>(floorf(-whi)) - 2, d_lo) : 1;
+    const int dh = any ? min(static_cast<int>(ceilf(-wlo)) + 2, d_hi) : 0;
+
+    const int col = c0 + tid;
+    if (col >= w) continue;
     const float colf = static_cast<float>(col);
     const float colp1 = colf + 1.0f;
 
-    // 2. The K smallest points in [col, col + 1), sorted.
+    // 2. One walk: breakpoints, and the candidate list.
     float slots[kPieces];
 #pragma unroll
     for (int j = 0; j < kPieces; ++j) slots[j] = sent_r;
-    for (int d = d_lo; d <= d_hi; ++d) {
-      const int cp = col + d;
-      if (cp < 0 || cp > w - 1) continue;
+    int n = 0, first_cp = w, last_cp = -1;
+    const int cp0 = max(col + dl, 0), cp1 = min(col + dh, w - 1);
+    float prev_hi = 0.0f;  // x + hw of source cp - 1
+    for (int cp = cp0; cp <= min(cp1 + 1, w - 1); ++cp) {
       const float xv = s_x[cp];
+      const float lo_pt = xv - hw, hi_pt = xv + hw;
+      // connecting segment of cp - 1: [x[cp - 1] + hw, x[cp] - hw]
+      if (cp > cp0 && prev_hi < colp1 && lo_pt >= colf) {
+        if (n < list_cap) list[n * kThreads] = (cp - 1) << 1;
+        ++n;
+        first_cp = min(first_cp, cp - 1);
+        last_cp = cp - 1;
+      }
+      prev_hi = hi_pt;
+      if (cp > cp1) break;  // the step past the window serves only that segment
       if (kSharp) {
-        insert(slots, xv - hw, colf, colp1);
-        insert(slots, xv + hw, colf, colp1);
+        if (lo_pt < colp1 && hi_pt >= colf) {  // flat top of cp
+          if (n < list_cap) list[n * kThreads] = (cp << 1) | 1;
+          ++n;
+          first_cp = min(first_cp, cp);
+          last_cp = cp;
+        }
       } else {
         insert(slots, xv, colf, colp1);
+      }
+    }
+    const bool listed = n <= list_cap;
+    if (!listed && overflow != nullptr) atomicAdd(overflow, 1);
+    if (kSharp) {
+      // A point x -+ hw in [col, col + 1) is an end of a flat top that
+      // passes the list's test, so the listed flat tops (or, past the list's
+      // capacity, those from the first listed source to the last) hold
+      // every breakpoint.
+      for (int j = 0; j < (listed ? n : last_cp - first_cp + 1); ++j) {
+        int cp = first_cp + j;
+        if (listed) {
+          const int code = list[j * kThreads];
+          if (!(code & 1)) continue;
+          cp = code >> 1;
+        }
+        const float xv = s_x[cp];
+        insert(slots, xv - hw, colf, colp1);
+        insert(slots, xv + hw, colf, colp1);
       }
     }
 
@@ -171,12 +291,16 @@ __global__ void __launch_bounds__(kThreads) polylines_exact_kernel(
       Scan s;
       s.consider(center, sent_l, first_x, 0.0f, cl_first, 0, true);
       s.consider(center, last_x, sent_r, cl_last, 0.0f, w - 1, true);
-      for (int d = d_lo; d <= d_hi; ++d) {
-        const int cp = col + d;
-        if (cp < 0 || cp > w - 1) continue;
-        const float xc = s_x[cp], clc = s_cl[cp];
-        if (kSharp) s.consider(center, xc - hw, xc + hw, clc, clc, cp, true);
-        if (cp <= w - 2) s.consider(center, xc + hw, s_x[cp + 1] - hw, clc, s_cl[cp + 1], cp, false);
+      if (listed) {
+        for (int j = 0; j < n; ++j) {
+          const int code = list[j * kThreads];
+          s.consider_source(center, s_x, s_cl, code >> 1, code & 1, hw);
+        }
+      } else {
+        for (int cp = first_cp; cp <= last_cp; ++cp) {
+          if (kSharp) s.consider_source(center, s_x, s_cl, cp, true, hw);
+          if (cp <= w - 2) s.consider_source(center, s_x, s_cl, cp, false, hw);
+        }
       }
       const Winner win = s.best_cl > -kEps ? s.best : s.fb;
 
@@ -206,29 +330,71 @@ __global__ void __launch_bounds__(kThreads) polylines_exact_kernel(
   }
 }
 
-template <bool kSharp>
-int launch(const void* x, const void* cl, const void* colors, void* out, int n, int w, int c,
-           int max_disp, void* stream) {
-  const size_t smem = 2 * static_cast<size_t>(w) * sizeof(float);
-  cudaError_t err = cs::allow_dynamic_smem(polylines_exact_kernel<kSharp>, smem);
+size_t smem_bytes(int w) {
+  const size_t nb = (static_cast<size_t>(w) + kBlock - 1) / kBlock;
+  return (2 * static_cast<size_t>(w) + 2 * nb) * sizeof(float) +
+         static_cast<size_t>(kListCap) * kThreads * sizeof(int);
+}
+
+template <bool kSharp, bool kFused, int kC>
+int launch_c(const void* a, const void* b, float sep, const void* colors, void* out, int n,
+             int w, int c, int max_disp, int list_cap, void* overflow, void* stream) {
+  const size_t smem = smem_bytes(w);
+  cudaError_t err = cs::allow_dynamic_smem(polylines_exact_kernel<kSharp, kFused, kC>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  polylines_exact_kernel<kSharp><<<n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(cl),
-      static_cast<const float*>(colors), static_cast<float*>(out), w, c, max_disp);
+  polylines_exact_kernel<kSharp, kFused, kC>
+      <<<n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(a), static_cast<const float*>(b), sep,
+          static_cast<const float*>(colors), static_cast<float*>(out), w, c, max_disp,
+          list_cap, static_cast<int*>(overflow));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kSharp, bool kFused>
+int launch(const void* a, const void* b, float sep, const void* colors, void* out, int n, int w,
+           int c, int max_disp, int list_cap, void* overflow, void* stream) {
+  return c == 3 ? launch_c<kSharp, kFused, 3>(a, b, sep, colors, out, n, w, c, max_disp,
+                                              list_cap, overflow, stream)
+                : launch_c<kSharp, kFused, 0>(a, b, sep, colors, out, n, w, c, max_disp,
+                                              list_cap, overflow, stream);
+}
+
+int check(int c, int max_pieces, int list_cap) {
+  if (c < 1 || c > 3 || max_pieces != kPieces || list_cap < 0 || list_cap > kListCap) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
 }
 
 }  // namespace
 
 // x, cl: [n, w] float32; colors, out: [n, w, c] float32 (HWC rows, c of 1 to
-// 3); max_pieces must be 12. Returns the cudaError_t of the launch.
+// 3); max_pieces must be 12; list_cap (0 to 16) is the candidate lists'
+// capacity; overflow (int, or null) counts the columns that outgrew it.
+// Returns the cudaError_t of the launch.
 extern "C" int cs_polylines_exact_rows(const void* x, const void* cl, const void* colors,
                                        void* out, int n, int w, int c, int sharp,
-                                       int max_pieces, int max_disp, void* stream) {
+                                       int max_pieces, int max_disp, int list_cap,
+                                       void* overflow, void* stream) {
   if (n == 0 || w == 0) return 0;
-  if (c < 1 || c > 3 || max_pieces != kPieces) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return sharp ? launch<true>(x, cl, colors, out, n, w, c, max_disp, stream)
-               : launch<false>(x, cl, colors, out, n, w, c, max_disp, stream);
+  if (int err = check(c, max_pieces, list_cap)) return err;
+  return sharp ? launch<true, false>(x, cl, 0.0f, colors, out, n, w, c, max_disp, list_cap,
+                                     overflow, stream)
+               : launch<false, false>(x, cl, 0.0f, colors, out, n, w, c, max_disp, list_cap,
+                                      overflow, stream);
+}
+
+// The fused entry: coord [n, w] float32 signed offsets, sep the separation
+// in pixels as float32; x = ((col + 0.5) + coord) + sep and cl = |coord|
+// are formed in the kernel. Otherwise as cs_polylines_exact_rows.
+extern "C" int cs_polylines_exact_coord(const void* coord, float sep, const void* colors,
+                                        void* out, int n, int w, int c, int sharp,
+                                        int max_pieces, int max_disp, int list_cap,
+                                        void* overflow, void* stream) {
+  if (n == 0 || w == 0) return 0;
+  if (int err = check(c, max_pieces, list_cap)) return err;
+  return sharp ? launch<true, true>(coord, nullptr, sep, colors, out, n, w, c, max_disp,
+                                    list_cap, overflow, stream)
+               : launch<false, true>(coord, nullptr, sep, colors, out, n, w, c, max_disp,
+                                     list_cap, overflow, stream);
 }

@@ -51,10 +51,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "cs_gather_rows_b32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "polylines_exact": {
-        "cs_polylines_exact_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "cs_polylines_exact_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+        "cs_polylines_exact_coord": [_P, _F, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     },
     "polylines": {
         "cs_polylines_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "cs_polylines_coord": [_P, _F, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "flash_attention": {
         "cs_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],

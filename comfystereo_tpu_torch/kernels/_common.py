@@ -27,3 +27,11 @@ def check_rows(name: str, tensors: Sequence[torch.Tensor], dtype: torch.dtype) -
 def stream_ptr(device: torch.device) -> int:
     """The raw cudaStream_t of PyTorch's current stream on `device`."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def point_x(coord: torch.Tensor, sep_px: float) -> torch.Tensor:
+    """Point positions x = col + 0.5 + coord + sep_px of [..., W] signed
+    offsets, added in that order in float32 (sep_px rounded to float32), as
+    the polylines routes form them and their fused kernels repeat."""
+    cols = torch.arange(coord.shape[-1], dtype=torch.float32, device=coord.device)
+    return cols + 0.5 + coord + sep_px

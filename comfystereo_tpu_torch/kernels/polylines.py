@@ -35,9 +35,21 @@ counts and keep every in-block query away from a window edge, so whole rows
 give the same bits (tests/test_torch_port_polylines.py holds the plain
 version against the Pallas kernel in interpret mode).
 
-`polylines_scanline` launches the kernel for CUDA tensors and runs the plain
-version, `polylines_scanline_plain`, for CPU tensors. The plain version keeps
-the Pallas kernel's float32 expressions and their order.
+Per column each group's first hit can only move one way as the samples
+advance (`hit_indices`), so the kernel keeps each group's winner, its two
+colours read from device memory, across samples and rebuilds it only where
+it changes.
+
+Two entries, each launching the kernel for CUDA tensors and running a plain
+version for CPU tensors:
+  * `polylines_scanline(x, coord, colors, ...)`, the Pallas kernel's
+    contract: colour sums out. Its plain version,
+    `polylines_scanline_plain`, keeps the Pallas kernel's float32
+    expressions and their order;
+  * `polylines_scanline_fused(coord, colors, sep_px, ...)`, what the route
+    calls: the kernel forms x = col + 0.5 + coord + sep_px and finishes with
+    trunc(clip(sum / S + 0.5, 0, 255)). Its plain version is that
+    composition.
 """
 from __future__ import annotations
 
@@ -171,6 +183,34 @@ def _sweep(cands, s_pos: torch.Tensor, upward: bool):
     return covered, _lerp(scl0, scl1, ip), _lerp(sc_l, sc_r, ip[..., None]), sc_l, found
 
 
+def hit_indices(x: torch.Tensor, coord: torch.Tensor, sharp: bool, samples: int,
+                k_candidates: int, max_disp: int):
+    """Each group's first hit per sample: (upward, downward), each
+    [S, N, W] int8, the candidate's index in the group's sweep order, -1
+    where none is hit (`sweep`'s `found`)."""
+    e_hi, e_lo = endpoint_streams(x, coord, sharp)
+    bases = (search(torch.cummax(e_hi, dim=-1).values, max_disp, upward=True),
+             search(torch.cummin(e_lo.flip(-1), dim=-1).values.flip(-1), max_disp,
+                    upward=False))
+    colsf = torch.arange(x.shape[-1], dtype=torch.float32, device=x.device)
+    out = []
+    for base, up in zip(bases, (True, False)):
+        # one stand-in colour channel: the hits need only the ends and members
+        cands = candidates(base, x, coord.abs(), coord, x[..., None], sharp, k_candidates, up)
+        keys = torch.stack([torch.where(mem & (x1 > x0), x1 if up else x0,
+                                        -math.inf if up else math.inf)
+                            for x0, x1, _, _, _, _, mem in cands])
+        del cands
+        idx = torch.empty((samples,) + x.shape, dtype=torch.int8, device=x.device)
+        for t in range(samples):
+            s_pos = colsf + sample_offset(t, samples)
+            hit = keys > s_pos if up else keys < s_pos
+            first = hit.to(torch.int8).argmax(0).to(torch.int8)
+            idx[t] = torch.where(hit.any(0), first, -1)
+        out.append(idx)
+    return tuple(out)
+
+
 def _lerp(a: torch.Tensor, b: torch.Tensor, ip: torch.Tensor) -> torch.Tensor:
     """a * (1 - ip) + b * ip, each product and the sum rounded to float32
     (the CUDA kernel builds with -fmad=false)."""
@@ -205,6 +245,55 @@ def polylines_scanline_plain(x: torch.Tensor, coord: torch.Tensor, colors: torch
     return acc
 
 
+def smem_bytes(w: int, samples: int) -> int:
+    """Dynamic shared memory of a CTA: the row's x and coord, the two
+    endpoint streams on W + 1 slots scanned and as they are, and the sample
+    offsets."""
+    return 4 * (2 * w + 4 * (w + 1) + samples)
+
+
+def _check(name: str, rows, colors: torch.Tensor, samples: int, k_candidates: int,
+           max_disp: int) -> None:
+    _common.check_rows(name, rows, torch.float32)
+    n, w = rows[0].shape
+    if colors.dim() != 3 or tuple(colors.shape[:2]) != (n, w):
+        raise ValueError(f"{name}: colors must be [{n}, {w}, C], got {tuple(colors.shape)}")
+    if colors.dtype != torch.float32:
+        raise TypeError(f"{name}: colors must be float32, got {colors.dtype}")
+    if colors.device != rows[0].device:
+        raise ValueError(f"{name}: colors and the rows on different devices")
+    if samples < 1 or k_candidates < 1 or max_disp < 0:
+        raise ValueError(f"{name}: samples {samples} and k_candidates {k_candidates} must "
+                         f"be >= 1, max_disp {max_disp} >= 0")
+    if rows[0].device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {rows[0].device}")
+
+
+def _launch(name: str, entry: str, rows, colors: torch.Tensor, sharp: bool, samples: int,
+            k_candidates: int, max_disp: int) -> torch.Tensor:
+    """Check the kernel's own limits and launch `entry` (rows: its leading
+    arguments, pointers or the float32 separation)."""
+    global LAUNCHES
+    c = colors.shape[-1]
+    if not 1 <= c <= 3:
+        raise ValueError(f"{name}: the CUDA kernel takes 1 to 3 channels, got {c}")
+    if k_candidates != KERNEL_K:
+        raise ValueError(f"{name}: the CUDA kernel is built for k_candidates={KERNEL_K}, "
+                         f"got {k_candidates}")
+    if not colors.is_contiguous():
+        raise ValueError(f"{name}: colors must be contiguous")
+    from . import _build
+
+    n, w = colors.shape[:2]
+    out = torch.empty_like(colors)
+    err = getattr(_build.library("polylines"), entry)(
+        *rows, colors.data_ptr(), out.data_ptr(), n, w, c, int(bool(sharp)), int(samples),
+        int(k_candidates), int(max_disp), _common.stream_ptr(colors.device))
+    _build.check(err, f"{name} kernel launch")
+    LAUNCHES += 1
+    return out
+
+
 def polylines_scanline(x: torch.Tensor, coord: torch.Tensor, colors: torch.Tensor, *,
                        sharp: bool, samples: int, k_candidates: int,
                        max_disp: int) -> torch.Tensor:
@@ -212,41 +301,36 @@ def polylines_scanline(x: torch.Tensor, coord: torch.Tensor, colors: torch.Tenso
     Pallas kernel, not of the XLA twin): the CUDA kernel for CUDA tensors
     (C of 1 to 3, k_candidates 4), the plain version for CPU tensors. x, coord:
     [N, W] float32, contiguous; colors: [N, W, C] float32, contiguous."""
-    global LAUNCHES
-    _common.check_rows("polylines_scanline", (x, coord), torch.float32)
-    n, w = x.shape
-    if colors.dim() != 3 or tuple(colors.shape[:2]) != (n, w):
-        raise ValueError(f"polylines_scanline: colors must be [{n}, {w}, C], got "
-                         f"{tuple(colors.shape)}")
-    if colors.dtype != torch.float32:
-        raise TypeError(f"polylines_scanline: colors must be float32, got {colors.dtype}")
-    if colors.device != x.device:
-        raise ValueError("polylines_scanline: colors and x on different devices")
-    if samples < 1 or k_candidates < 1 or max_disp < 0:
-        raise ValueError(f"polylines_scanline: samples {samples} and k_candidates "
-                         f"{k_candidates} must be >= 1, max_disp {max_disp} >= 0")
+    _check("polylines_scanline", (x, coord), colors, samples, k_candidates, max_disp)
     kw = dict(sharp=bool(sharp), samples=int(samples), k_candidates=int(k_candidates),
               max_disp=int(max_disp))
     if x.device.type == "cpu":
         return polylines_scanline_plain(x, coord, colors, **kw)
-    if x.device.type != "cuda":
-        raise ValueError(f"polylines_scanline: unsupported device {x.device}")
-    c = colors.shape[-1]
-    if not 1 <= c <= 3:
-        raise ValueError(f"polylines_scanline: the CUDA kernel takes 1 to 3 channels, got {c}")
-    if k_candidates != KERNEL_K:
-        raise ValueError(f"polylines_scanline: the CUDA kernel is built for "
-                         f"k_candidates={KERNEL_K}, got {k_candidates}")
-    if not colors.is_contiguous():
-        raise ValueError("polylines_scanline: colors must be contiguous")
-    from . import _build
+    return _launch("polylines_scanline", "cs_polylines_rows",
+                   (x.data_ptr(), coord.data_ptr()), colors, **kw)
 
-    out = torch.empty_like(colors)
-    err = _build.library("polylines").cs_polylines_rows(
-        x.data_ptr(), coord.data_ptr(), colors.data_ptr(), out.data_ptr(), n, w, c,
-        int(kw["sharp"]), kw["samples"], kw["k_candidates"], kw["max_disp"],
-        _common.stream_ptr(x.device))
-    _build.check(err, "polylines_scanline kernel launch")
-    LAUNCHES += 1
-    return out
 
+def polylines_scanline_fused_plain(coord: torch.Tensor, colors: torch.Tensor, sep_px: float,
+                                   *, sharp: bool, samples: int, k_candidates: int,
+                                   max_disp: int) -> torch.Tensor:
+    """The route's composition: x = col + 0.5 + coord + sep_px, the sums of
+    `polylines_scanline_plain`, then trunc(clip(sum / S + 0.5, 0, 255))."""
+    sums = polylines_scanline_plain(_common.point_x(coord, sep_px), coord, colors,
+                                    sharp=sharp, samples=samples,
+                                    k_candidates=k_candidates, max_disp=max_disp)
+    return torch.trunc(torch.clamp(sums / samples + 0.5, 0.0, 255.0))
+
+
+def polylines_scanline_fused(coord: torch.Tensor, colors: torch.Tensor, sep_px: float, *,
+                             sharp: bool, samples: int, k_candidates: int,
+                             max_disp: int) -> torch.Tensor:
+    """The finished uint8-valued colour of [N, W] rows of signed offsets
+    `coord` (float32, contiguous) with separation `sep_px`: the kernel forms
+    x and divides the sums itself. Otherwise as `polylines_scanline`."""
+    _check("polylines_scanline_fused", (coord,), colors, samples, k_candidates, max_disp)
+    kw = dict(sharp=bool(sharp), samples=int(samples), k_candidates=int(k_candidates),
+              max_disp=int(max_disp))
+    if coord.device.type == "cpu":
+        return polylines_scanline_fused_plain(coord, colors, sep_px, **kw)
+    return _launch("polylines_scanline_fused", "cs_polylines_coord",
+                   (coord.data_ptr(), float(sep_px)), colors, **kw)

@@ -4,22 +4,31 @@ the hybrid_edge_plus backfill).
 Kernel: `csrc/polylines_exact.cu`, CUDA C++ for sm_90a, replacing the Pallas
 kernel `comfystereo_tpu/pallas/polylines_exact_kernel.py:
 polylines_exact_scanline`. One CTA per image row: the row's m range sets the
-candidate window, each column collects its breakpoints in [col, col + 1) by
-a register bubble insert, builds its pieces and runs the winner scan per
-piece. Its bytes (32 per pixel with three channels) and its operations
-(in sharp mode 7 per window step and valid piece, nearly all activity tests,
-and a blend for each active candidate) give bounds of about the same size.
-See the source's header.
+candidate window, each warp narrows it to the m range of the sources its
+columns can reach, and each column walks it once, collecting its breakpoints
+in [col, col + 1) by a register bubble insert and its candidate list (the
+segments with x0 < col + 1 and x1 >= col, in the scan's order); then it
+builds its pieces and runs the winner scan per piece over that list. A
+column whose list outgrows LIST_CAP entries scans the sources from its
+first listed one to its last instead. Its bytes (28 per pixel through the
+fused entry) bound it, with its operations close behind. See the source's
+header.
 
-`polylines_exact_rows` launches the kernel for CUDA tensors and runs the
-plain version, `polylines_exact_rows_plain`, for CPU tensors. The plain
-version is the PyTorch translation of the JAX package's XLA path
-(`ops/polylines_exact.py`: `_searchsorted_left_aligned`, `_piece_geometry`,
-`_winner_scan_xla`) in its float32 expression forms, with two changes that
-the tests show change no output: each row's candidates are limited to that
-row's own window, as the kernel limits them (the XLA path takes one window
-per 64-row chunk), and pieces that no pixel of the batch reaches are skipped
-(they add 0.0 to an accumulator of at least 0.5).
+Two entries, each launching the kernel for CUDA tensors and running a plain
+version for CPU tensors:
+  * `polylines_exact_rows(x, cl, colors, ...)`, the Pallas kernel's
+    contract (point centers and closeness in); its plain version,
+    `polylines_exact_rows_plain`, is the PyTorch translation of the JAX
+    package's XLA path (`ops/polylines_exact.py`: `_searchsorted_left_aligned`,
+    `_piece_geometry`, `_winner_scan_xla`) in its float32 expression forms,
+    with two changes that the tests show change no output: each row's
+    candidates are limited to that row's own window, as the kernel limits
+    them (the XLA path takes one window per 64-row chunk), and pieces that
+    no pixel of the batch reaches are skipped (they add 0.0 to an
+    accumulator of at least 0.5);
+  * `polylines_exact_rows_fused(coord, colors, sep_px, ...)`, what the
+    route calls: the kernel forms x = col + 0.5 + coord + sep_px and
+    cl = |coord| itself. Its plain version is that composition.
 """
 from __future__ import annotations
 
@@ -34,6 +43,8 @@ LAUNCHES = 0  # kernel launches since the last reset (plain-version calls don't 
 
 _EPS = 1e-7        # rounded to float32 wherever it meets a float32 tensor
 KERNEL_PIECES = 12  # the max_pieces the CUDA kernel is built for
+LIST_CAP = 16       # entries of a column's candidate list in the CUDA kernel
+BLOCK = 32          # columns per warp, and per block of the kernel's m ranges
 
 
 def window(x: torch.Tensor, max_disp: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -46,6 +57,65 @@ def window(x: torch.Tensor, max_disp: int) -> Tuple[torch.Tensor, torch.Tensor]:
     d_lo = torch.floor(-m.amax(-1, keepdim=True)).long() - 2
     d_hi = torch.ceil(-m.amin(-1, keepdim=True)).long() + 2
     return d_lo.clamp(min=-r_static), d_hi.clamp(max=r_static)
+
+
+def warp_windows(x: torch.Tensor, max_disp: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's window [dl, dh] of d = source - col for each column, as
+    [N, W] ints: the row window narrowed, per warp of 32 columns, to the m
+    range of the 32-column blocks holding the sources those columns can
+    reach (col + d and col + d + 1, d in the row window). Empty (1, 0) where
+    there are none."""
+    n, w = x.shape
+    dev = x.device
+    d_lo, d_hi = window(x, max_disp)                             # [n, 1]
+    m = x - (torch.arange(w, dtype=torch.float32, device=dev) + 0.5)
+    nb = -(-w // BLOCK)
+    pad = (0, nb * BLOCK - w)
+    bmin = torch.nn.functional.pad(m, pad, value=math.inf).view(n, nb, BLOCK).amin(-1)
+    bmax = torch.nn.functional.pad(m, pad, value=-math.inf).view(n, nb, BLOCK).amax(-1)
+    cw = torch.arange(nb, device=dev) * BLOCK                    # each warp's first column
+    src_lo = torch.clamp(cw + d_lo, min=0)
+    src_hi = torch.clamp(cw + BLOCK + d_hi, max=w - 1)
+    b0, b1 = src_lo // BLOCK, src_hi // BLOCK
+    wlo = torch.full((n, nb), math.inf, device=dev)
+    whi = torch.full((n, nb), -math.inf, device=dev)
+    for k in range(int((b1 - b0).max()) + 1 if nb else 0):
+        bk = torch.clamp(b0 + k, max=nb - 1)
+        take = (b0 + k <= b1) & (src_lo <= src_hi)
+        wlo = torch.where(take, torch.minimum(wlo, bmin.gather(-1, bk)), wlo)
+        whi = torch.where(take, torch.maximum(whi, bmax.gather(-1, bk)), whi)
+    some = src_lo <= src_hi
+    dl = torch.where(some, torch.maximum(torch.floor(-whi).nan_to_num(0).long() - 2, d_lo), 1)
+    dh = torch.where(some, torch.minimum(torch.ceil(-wlo).nan_to_num(0).long() + 2, d_hi), 0)
+    return (dl.repeat_interleave(BLOCK, -1)[:, :w], dh.repeat_interleave(BLOCK, -1)[:, :w])
+
+
+def candidate_lists(x: torch.Tensor, sharp: bool, max_disp: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(lengths, flats, steps), each [N, W] int: per column, the number of
+    entries of the kernel's candidate list (the flat and connecting
+    segments of the sources in the column's window with x0 < col + 1 and
+    x1 >= col), how many of them are flat tops, and the number of steps of
+    its walk over the window."""
+    n, w = x.shape
+    hw = 0.45 if sharp else 0.0
+    cols = torch.arange(w, device=x.device)
+    colsf = cols.float()
+    dl, dh = warp_windows(x, max_disp)
+    r = max_disp + 5
+    xp = torch.nn.functional.pad(x, (r, r + 1))
+    flats = torch.zeros((n, w), dtype=torch.int32, device=x.device)
+    conns = torch.zeros_like(flats)
+    for d in range(int(dl.min()), int(dh.max()) + 1):
+        cur, nxt = xp[:, r + d:r + d + w], xp[:, r + d + 1:r + d + 1 + w]
+        ok = (d >= dl) & (d <= dh) & (cols + d >= 0) & (cols + d <= w - 1)
+        if sharp:
+            flats += ok & (cur - hw < colsf + 1.0) & (cur + hw >= colsf)
+        conns += ok & (cols + d <= w - 2) & (cur + hw < colsf + 1.0) & (nxt - hw >= colsf)
+    cp0 = torch.clamp(cols + dl, min=0)
+    cp1 = torch.clamp(cols + dh, max=w - 1)
+    steps = (torch.clamp(cp1 + 1, max=w - 1) - cp0 + 1).clamp(min=0)
+    return flats + conns, flats, steps
 
 
 def searchsorted_left_aligned(xs: torch.Tensor, ppc: int, win: int) -> torch.Tensor:
@@ -191,41 +261,105 @@ def polylines_exact_rows_plain(x: torch.Tensor, cl: torch.Tensor,
     return winner_scan(colors, x, cl, centers, sigs, valids, sharp, max_disp)
 
 
+def smem_bytes(w: int) -> int:
+    """Dynamic shared memory of a CTA: the row's x and closeness, the m
+    ranges of its 32-column blocks, and 256 threads' candidate lists."""
+    return 4 * (2 * w + 2 * (-(-w // BLOCK))) + 4 * LIST_CAP * 256
+
+
+def _check_colors(name: str, colors: torch.Tensor, n: int, w: int, device) -> None:
+    if colors.dim() != 3 or tuple(colors.shape[:2]) != (n, w):
+        raise ValueError(f"{name}: colors must be [{n}, {w}, C], got {tuple(colors.shape)}")
+    if colors.dtype != torch.float32:
+        raise TypeError(f"{name}: colors must be float32, got {colors.dtype}")
+    if colors.device != device:
+        raise ValueError(f"{name}: colors and the rows on different devices")
+
+
+def _launch(name: str, entry: str, rows, colors: torch.Tensor, sharp: bool,
+            max_pieces: int, max_disp: int, list_cap: int, overflow) -> torch.Tensor:
+    """Check the kernel's own limits and launch `entry` (rows: its leading
+    arguments, pointers or the float32 separation)."""
+    global LAUNCHES
+    c = colors.shape[-1]
+    if not 1 <= c <= 3:
+        raise ValueError(f"{name}: the CUDA kernel takes 1 to 3 channels, got {c}")
+    if max_pieces != KERNEL_PIECES:
+        raise ValueError(f"{name}: the CUDA kernel is built for max_pieces={KERNEL_PIECES}, "
+                         f"got {max_pieces}")
+    if not 0 <= list_cap <= LIST_CAP:
+        raise ValueError(f"{name}: list_cap {list_cap} not in [0, {LIST_CAP}]")
+    if not colors.is_contiguous():
+        raise ValueError(f"{name}: colors must be contiguous")
+    if overflow is not None and (overflow.dtype != torch.int32 or overflow.numel() != 1
+                                 or overflow.device != colors.device):
+        raise ValueError(f"{name}: overflow must be one int32 on {colors.device}")
+    from . import _build
+
+    n, w = colors.shape[:2]
+    out = torch.empty_like(colors)
+    err = getattr(_build.library("polylines_exact"), entry)(
+        *rows, colors.data_ptr(), out.data_ptr(), n, w, c, int(bool(sharp)), int(max_pieces),
+        int(max_disp), int(list_cap), None if overflow is None else overflow.data_ptr(),
+        _common.stream_ptr(colors.device))
+    _build.check(err, f"{name} kernel launch")
+    LAUNCHES += 1
+    return out
+
+
+def _count_overflow(overflow, x: torch.Tensor, sharp: bool, max_disp: int,
+                    list_cap: int) -> None:
+    """On the CPU: add to `overflow` the columns whose list outgrows
+    list_cap, as the kernel counts them."""
+    if overflow is not None:
+        overflow += int((candidate_lists(x, sharp, max_disp)[0] > list_cap).sum())
+
+
 def polylines_exact_rows(x: torch.Tensor, cl: torch.Tensor, colors: torch.Tensor,
-                         *, sharp: bool, max_pieces: int, max_disp: int
+                         *, sharp: bool, max_pieces: int, max_disp: int,
+                         list_cap: int = LIST_CAP, overflow: torch.Tensor = None
                          ) -> torch.Tensor:
     """Render [N, W] rows: the CUDA kernel for CUDA tensors (C of 1 to 3,
     max_pieces 12), the plain version for CPU tensors. x, cl: [N, W]
-    float32, contiguous; colors: [N, W, C] float32, contiguous."""
-    global LAUNCHES
-    _common.check_rows("polylines_exact_rows", (x, cl), torch.float32)
-    n, w = x.shape
-    if colors.dim() != 3 or tuple(colors.shape[:2]) != (n, w):
-        raise ValueError(f"polylines_exact_rows: colors must be [{n}, {w}, C], got "
-                         f"{tuple(colors.shape)}")
-    if colors.dtype != torch.float32:
-        raise TypeError(f"polylines_exact_rows: colors must be float32, got {colors.dtype}")
-    if colors.device != x.device:
-        raise ValueError("polylines_exact_rows: colors and x on different devices")
+    float32, contiguous; colors: [N, W, C] float32, contiguous. list_cap
+    (0 to LIST_CAP) caps the candidate lists; `overflow`, a one-element
+    int32 tensor, receives the count of columns that outgrew it."""
+    name = "polylines_exact_rows"
+    _common.check_rows(name, (x, cl), torch.float32)
+    _check_colors(name, colors, *x.shape, x.device)
     if x.device.type == "cpu":
+        _count_overflow(overflow, x, sharp, max_disp, list_cap)
         return polylines_exact_rows_plain(x, cl, colors, sharp, max_pieces, max_disp)
     if x.device.type != "cuda":
-        raise ValueError(f"polylines_exact_rows: unsupported device {x.device}")
-    c = colors.shape[-1]
-    if not 1 <= c <= 3:
-        raise ValueError(f"polylines_exact_rows: the CUDA kernel takes 1 to 3 channels, got {c}")
-    if max_pieces != KERNEL_PIECES:
-        raise ValueError(f"polylines_exact_rows: the CUDA kernel is built for "
-                         f"max_pieces={KERNEL_PIECES}, got {max_pieces}")
-    if not colors.is_contiguous():
-        raise ValueError("polylines_exact_rows: colors must be contiguous")
-    from . import _build
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return _launch(name, "cs_polylines_exact_rows", (x.data_ptr(), cl.data_ptr()), colors,
+                   sharp, max_pieces, max_disp, list_cap, overflow)
 
-    out = torch.empty_like(colors)
-    err = _build.library("polylines_exact").cs_polylines_exact_rows(
-        x.data_ptr(), cl.data_ptr(), colors.data_ptr(), out.data_ptr(), n, w, c,
-        int(bool(sharp)), int(max_pieces), int(max_disp),
-        _common.stream_ptr(x.device))
-    _build.check(err, "polylines_exact_rows kernel launch")
-    LAUNCHES += 1
-    return out
+
+def polylines_exact_rows_fused_plain(coord: torch.Tensor, colors: torch.Tensor,
+                                     sep_px: float, sharp: bool, max_pieces: int,
+                                     max_disp: int) -> torch.Tensor:
+    """The route's composition: x = col + 0.5 + coord + sep_px, cl = |coord|,
+    then `polylines_exact_rows_plain`."""
+    return polylines_exact_rows_plain(_common.point_x(coord, sep_px), torch.abs(coord),
+                                      colors, sharp, max_pieces, max_disp)
+
+
+def polylines_exact_rows_fused(coord: torch.Tensor, colors: torch.Tensor, sep_px: float,
+                               *, sharp: bool, max_pieces: int, max_disp: int,
+                               list_cap: int = LIST_CAP, overflow: torch.Tensor = None
+                               ) -> torch.Tensor:
+    """Render [N, W] rows of signed offsets `coord` (float32, contiguous)
+    with separation `sep_px`: the kernel forms x and cl itself. Otherwise as
+    `polylines_exact_rows`."""
+    name = "polylines_exact_rows_fused"
+    _common.check_rows(name, (coord,), torch.float32)
+    _check_colors(name, colors, *coord.shape, coord.device)
+    if coord.device.type == "cpu":
+        _count_overflow(overflow, _common.point_x(coord, sep_px), sharp, max_disp, list_cap)
+        return polylines_exact_rows_fused_plain(coord, colors, sep_px, sharp, max_pieces,
+                                                max_disp)
+    if coord.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {coord.device}")
+    return _launch(name, "cs_polylines_exact_coord", (coord.data_ptr(), float(sep_px)),
+                   colors, sharp, max_pieces, max_disp, list_cap, overflow)

@@ -18,8 +18,9 @@ Two functions compute this, as in the JAX package (`ops/polylines.py`):
     sample's arithmetic is the same elementwise function) and adds the
     samples in order;
   * the kernel route, `_polylines_kernel`: `kernels/polylines.py`'s
-    `polylines_scanline` (the CUDA kernel on the card, its plain version on
-    the CPU), the function of the JAX package's Pallas kernel, which solves
+    `polylines_scanline_fused` (the CUDA kernel on the card, its plain
+    version on the CPU), the function of the JAX package's Pallas kernel
+    with the route's point positions and finish, which solves
     the negative group natively and differs from the twin in a few details
     (see that module). JAX holds the two to a mean |err| < 0.05 and < 0.1%
     of values off by more than 1 LSB.
@@ -38,7 +39,7 @@ import torch.nn.functional as F
 from . import depth as depth_ops
 from . import scan
 from ..kernels.gather import bounded_take_along_w
-from ..kernels.polylines import polylines_scanline, sample_offset, search_rounds
+from ..kernels.polylines import polylines_scanline_fused, sample_offset, search_rounds
 
 _NEG_INF = -1e30
 IMPLS = ("auto", "kernel", "twin")
@@ -170,17 +171,15 @@ def _polylines_impl(image: torch.Tensor, coord: torch.Tensor, sep_px: float, sha
 
 def _polylines_kernel(image: torch.Tensor, coord: torch.Tensor, sep_px: float, sharp: bool,
                       samples: int, k_candidates: int, max_disp: int) -> torch.Tensor:
-    """The kernel route: both groups, the closeness combine and the sample
-    sums in `polylines_scanline`; the mean and the finish here."""
+    """The kernel route: `polylines_scanline_fused` forms the point
+    positions, solves both groups, combines them by closeness, sums the
+    samples and finishes with trunc(clip(sum / S + 0.5, 0, 255))."""
     b, h, w = coord.shape
     c = image.shape[-1]
-    cols = torch.arange(w, dtype=torch.float32, device=coord.device)
-    x = cols + 0.5 + coord + sep_px
-    sums = polylines_scanline(
-        x.reshape(b * h, w).contiguous(), coord.reshape(b * h, w).contiguous(),
-        image.reshape(b * h, w, c).contiguous(), sharp=sharp, samples=samples,
-        k_candidates=k_candidates, max_disp=max_disp)
-    return torch.trunc(torch.clamp(sums.reshape(b, h, w, c) / samples + 0.5, 0.0, 255.0))
+    out = polylines_scanline_fused(
+        coord.reshape(b * h, w).contiguous(), image.reshape(b * h, w, c).contiguous(), sep_px,
+        sharp=sharp, samples=samples, k_candidates=k_candidates, max_disp=max_disp)
+    return out.reshape(b, h, w, c)
 
 
 def apply_polylines(image: torch.Tensor, norm_depth: torch.Tensor, divergence_px: float,

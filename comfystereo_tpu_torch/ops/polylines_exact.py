@@ -9,8 +9,9 @@ x1) with the maximum interpolated closeness wins (strict improvement,
 colour times the sub-interval's width goes into a 0.5-biased accumulator
 truncated to uint8.
 
-The rows are rendered by `kernels/polylines_exact.py`: the CUDA kernel for
-CUDA tensors, and for CPU tensors the plain version, which is the JAX
+The rows are rendered by `kernels/polylines_exact.py`'s fused entry: the
+CUDA kernel for CUDA tensors, and for CPU tensors the plain version, which
+is the point positions and closeness formed here and then the JAX
 package's XLA path (`_piece_geometry`, `_winner_scan_xla`) translated to
 PyTorch. Every sweep quantity is float32 in the reference's expression
 forms, so the output is bit-equal in uint8 to the JAX package's.
@@ -22,21 +23,19 @@ import math
 import torch
 
 from . import depth as depth_ops
-from ..kernels.polylines_exact import polylines_exact_rows
+from ..kernels.polylines_exact import polylines_exact_rows_fused
 
 
 def _exact_core(image: torch.Tensor, coord: torch.Tensor, sep_px: float,
                 sharp: bool, max_pieces: int, max_disp: int) -> torch.Tensor:
-    """image [B,H,W,C] float32, coord [B,H,W] float32 -> [B,H,W,C]."""
+    """image [B,H,W,C] float32, coord [B,H,W] float32 -> [B,H,W,C]. The
+    rows' x = col + 0.5 + coord + sep_px and closeness |coord| are formed by
+    the fused entry (in the kernel on the card)."""
     b, h, w = coord.shape
     c = image.shape[-1]
-    colsf = torch.arange(w, dtype=torch.float32, device=coord.device)
-    x = colsf + 0.5 + coord + sep_px
-    cl = torch.abs(coord)
-    out = polylines_exact_rows(
-        x.reshape(b * h, w).contiguous(), cl.reshape(b * h, w).contiguous(),
-        image.reshape(b * h, w, c).contiguous(), sharp=sharp,
-        max_pieces=max_pieces, max_disp=max_disp)
+    out = polylines_exact_rows_fused(
+        coord.reshape(b * h, w).contiguous(), image.reshape(b * h, w, c).contiguous(),
+        sep_px, sharp=sharp, max_pieces=max_pieces, max_disp=max_disp)
     return out.reshape(b, h, w, c)
 
 

@@ -186,6 +186,84 @@ def test_polylines_kernel_matches_plain(dev, sharp, channels, div_px, sep_px, ki
 
 
 @pytest.mark.parametrize("sharp", [True, False])
+@pytest.mark.parametrize("div_px,sep_px,kind", [(3.0, 0.0, "fixture"), (-4.5, 1.0, "noise")])
+def test_polylines_fused_entries_match_plain(dev, sharp, div_px, sep_px, kind):
+    """Both fused entries (x, and for the exact kernel |coord|, formed in
+    the kernel; the supersampled one also finishes the colour) against
+    their plain compositions, bit-equal, each counting one launch."""
+    _, coord, colors, max_disp = _poly_rows(dev, _depth(kind), div_px, sep_px, 3)
+    kw = dict(sharp=sharp, max_pieces=12, max_disp=max_disp)
+    before = polylines_exact.LAUNCHES
+    got = polylines_exact.polylines_exact_rows_fused(coord, colors, sep_px, **kw)
+    torch.cuda.synchronize()
+    assert polylines_exact.LAUNCHES == before + 1
+    assert torch.equal(got, polylines_exact.polylines_exact_rows_fused_plain(
+        coord, colors, sep_px, sharp, 12, max_disp))
+    skw = dict(sharp=sharp, samples=8, k_candidates=4, max_disp=max_disp)
+    before = polylines.LAUNCHES
+    got = polylines.polylines_scanline_fused(coord, colors, sep_px, **skw)
+    torch.cuda.synchronize()
+    assert polylines.LAUNCHES == before + 1
+    assert torch.equal(got, polylines.polylines_scanline_fused_plain(coord, colors, sep_px,
+                                                                     **skw))
+
+
+@pytest.mark.parametrize("list_cap", [0, 1, 3])
+@pytest.mark.parametrize("kind", ["fixture", "noise"])
+def test_polylines_kernel_overflowing_lists(dev, list_cap, kind):
+    """Columns whose candidate list outgrows list_cap scan their range of
+    sources instead: the output stays bit-equal, and the kernel counts
+    those columns as `candidate_lists` does."""
+    x, coord, colors, max_disp = _poly_rows(dev, _depth(kind), 4.5, 1.0, 3)
+    cl = coord.abs()
+    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = polylines_exact.polylines_exact_rows(x, cl, colors, sharp=True, max_pieces=12,
+                                               max_disp=max_disp, list_cap=list_cap,
+                                               overflow=overflow)
+    torch.cuda.synchronize()
+    assert torch.equal(got, polylines_exact.polylines_exact_rows_plain(x, cl, colors, True, 12,
+                                                                       max_disp))
+    lengths = polylines_exact.candidate_lists(x, True, max_disp)[0]
+    assert int(overflow) == int((lengths > list_cap).sum()) > 0
+
+
+@pytest.mark.parametrize("w,div_px", [(300, 6.0), (20, 40.0), (7, 25.0)])
+@pytest.mark.parametrize("sharp", [True, False])
+def test_polylines_kernels_other_widths(dev, w, div_px, sharp):
+    """Widths that are not a multiple of 256 (a partial last warp and
+    block of 32 columns), and widths smaller than the candidate window."""
+    rng = np.random.default_rng(w)
+    depth = torch.from_numpy(rng.uniform(0, 255, (5, w)).astype(np.float32)).to(dev)
+    nd = depth_ops.normalize_depth(depth[None]) - 0.5
+    coord = (depth_ops.signed_power(nd, 2.0)[0] * div_px).contiguous()
+    colors = torch.from_numpy(rng.integers(0, 256, (5, w, 3)).astype(np.float32)).to(dev)
+    max_disp = int(np.ceil(div_px)) + 5
+    x = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5 + coord + 1.0).contiguous()
+    cl = coord.abs()
+    got = polylines_exact.polylines_exact_rows(x, cl, colors, sharp=sharp, max_pieces=12,
+                                               max_disp=max_disp)
+    assert torch.equal(got, polylines_exact.polylines_exact_rows_plain(x, cl, colors, sharp, 12,
+                                                                       max_disp))
+    got = polylines_exact.polylines_exact_rows_fused(coord, colors, 1.0, sharp=sharp,
+                                                     max_pieces=12, max_disp=max_disp)
+    assert torch.equal(got, polylines_exact.polylines_exact_rows_fused_plain(
+        coord, colors, 1.0, sharp, 12, max_disp))
+    skw = dict(sharp=sharp, samples=8, k_candidates=4, max_disp=max_disp)
+    assert torch.equal(polylines.polylines_scanline(x, coord, colors, **skw),
+                       polylines.polylines_scanline_plain(x, coord, colors, **skw))
+    assert torch.equal(polylines.polylines_scanline_fused(coord, colors, 1.0, **skw),
+                       polylines.polylines_scanline_fused_plain(coord, colors, 1.0, **skw))
+
+
+def test_polylines_kernel_rejects_list_caps_it_lacks(dev):
+    x, coord, colors, max_disp = _poly_rows(dev, _depth("fixture"), 3.0, 0.0, 3)
+    with pytest.raises(ValueError, match="list_cap"):
+        polylines_exact.polylines_exact_rows(x, coord.abs(), colors, sharp=True, max_pieces=12,
+                                             max_disp=max_disp,
+                                             list_cap=polylines_exact.LIST_CAP + 1)
+
+
+@pytest.mark.parametrize("sharp", [True, False])
 @pytest.mark.parametrize("channels", [1, 3])
 @pytest.mark.parametrize("div_px,sep_px,kind", [(3.0, 0.0, "fixture"), (-3.0, 0.0, "fixture"),
                                                 (4.5, 1.0, "noise"), (-6.0, 0.5, "noise")])

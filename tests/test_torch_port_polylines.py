@@ -18,6 +18,13 @@ Stated tolerances:
   mean |err| < 0.05 and < 0.1% of values off by more than 1 LSB. It does
   not hold on rows whose offsets lie on the sample grid, where JAX's kernel
   and twin themselves differ (test_kernel_and_twin_differ_on_sample_grid_ties).
+- The fused entry (`polylines_scanline_fused`, what the kernel route calls):
+  its plain version bit-equal to the route's former composition (x formed
+  in PyTorch, the sums, the finish), and through `apply_polylines(impl=
+  "kernel")` to JAX's `impl="xla"` within the kernel-vs-twin bound above.
+- Each group's first hit over the samples of a column is monotone (upward:
+  never earlier, none stays none; downward: never later): the kernel keeps
+  its winners across samples on that ground.
 - `apply_stereo_divergence` with `polylines_exact_mode=False`: polylines
   fills bit-equal in uint8 to JAX's jitted dispatcher; hybrid_edge_plus to
   the hybrid fills' bound (1 LSB on at most 1% of values: the hybrid base
@@ -249,9 +256,9 @@ def test_auto_dispatch_on_cpu_is_twin(monkeypatch):
 
     def spy(*args, **kw):
         calls.append(kw)
-        return tkp.polylines_scanline(*args, **kw)
+        return tkp.polylines_scanline_fused(*args, **kw)
 
-    monkeypatch.setattr(tpoly, "polylines_scanline", spy)
+    monkeypatch.setattr(tpoly, "polylines_scanline_fused", spy)
     args = (torch.from_numpy(img), nd, 3.0, 0.5, 2.0)
     auto = tpoly.apply_polylines(*args, impl="auto")
     assert calls == [] and torch.equal(auto, tpoly.apply_polylines(*args, impl="twin"))
@@ -298,3 +305,178 @@ def test_wrapper_rejects_bad_arguments():
         tkp.polylines_scanline(x, torch.zeros(2, 9), torch.zeros(2, 8, 3), **kw)
     with pytest.raises(ValueError):
         tkp.polylines_scanline(x, x, torch.zeros(2, 8, 3), **dict(kw, samples=0))
+
+
+FUSED_CASES = [(24, 56, 4.5, 0.0, "fixture"), (24, 56, -4.5, 1.0, "fixture"),
+               (48, 64, 7.0, 1.5, "fold"), (40, 56, -7.0, -1.5, "noise")]
+
+
+@pytest.mark.parametrize("sharp", [True, False])
+@pytest.mark.parametrize("h,w,div,sep,kind", FUSED_CASES)
+def test_first_hits_monotone_over_samples(h, w, div, sep, kind, sharp):
+    x, coord, _, max_disp = _rows(h, w, div, sep, kind)
+    up, dn = (i.long() for i in tkp.hit_indices(x, coord, sharp, 8, 4, max_disp))
+    big = 2 * tkp.KERNEL_K
+    up = torch.where(up < 0, big, up)           # none: past every candidate
+    dn = torch.where(dn < 0, big, dn)
+    assert bool((up[1:] >= up[:-1]).all()) and bool((dn[1:] <= dn[:-1]).all())
+    changes = int((up[1:] != up[:-1]).sum() + (dn[1:] != dn[:-1]).sum())
+    assert changes <= 2 * 4 * x.numel()        # at most K moves per group and column
+    print(f"first-hit changes per column: {changes / x.numel():.3f}")
+
+
+@pytest.mark.parametrize("sharp", [True, False])
+@pytest.mark.parametrize("h,w,div,sep,kind", FUSED_CASES)
+def test_fused_entry_equals_route_composition(h, w, div, sep, kind, sharp):
+    """The fused entry's plain version (and its wrapper on the CPU) is
+    bit-equal to the kernel route's former composition: x formed in
+    PyTorch, the sums of `polylines_scanline`, trunc(clip(sum / S + 0.5))."""
+    _, coord, img, max_disp = _rows(h, w, div, sep, kind)
+    sep_px = (sep / 100.0) * w
+    kw = dict(sharp=sharp, samples=8, k_candidates=4, max_disp=max_disp)
+    x = torch.arange(w, dtype=torch.float32) + 0.5 + coord + sep_px
+    want = torch.trunc(torch.clamp(tkp.polylines_scanline(x, coord, img, **kw) / 8 + 0.5,
+                                   0.0, 255.0))
+    assert torch.equal(tkp.polylines_scanline_fused(coord, img, sep_px, **kw), want)
+    assert torch.equal(tkp.polylines_scanline_fused_plain(coord, img, sep_px, **kw), want)
+    route = tpoly._polylines_kernel(img[None], coord[None], sep_px, sharp, 8, 4, max_disp)
+    assert torch.equal(route[0], want)
+
+
+@pytest.mark.parametrize("sharp,div,sep,kind", [(True, 4.5, 1.0, "fixture"),
+                                                (False, -4.5, -1.0, "fixture"),
+                                                (True, 7.0, -1.5, "fold")])
+def test_fused_kernel_route_near_xla(sharp, div, sep, kind):
+    """`apply_polylines(impl="kernel")` through the fused entry against JAX's
+    `impl="xla"`, with a separation of either sign: the JAX package's bound
+    for its kernel against its twin (mean |err| < 0.05, < 0.1% of values
+    more than 1 LSB apart)."""
+    h, w = 24, 56
+    img, depth = _image(h, w), _depth(kind, h, w)[None]
+    div_px, sep_px = (div / 100.0) * w, (sep / 100.0) * w
+    jnd = jdepth.normalize_depth(jnp.asarray(depth)) - 0.5
+    want = np.asarray(jpoly.apply_polylines(jnp.asarray(img), jnd, div_px, sep_px, 2.0,
+                                            sharp=sharp, impl="xla"))
+    tnd = tdepth.normalize_depth(torch.from_numpy(depth)) - 0.5
+    got = tpoly.apply_polylines(torch.from_numpy(img), tnd, div_px, sep_px, 2.0, sharp=sharp,
+                                impl="kernel").numpy()
+    err = np.abs(got.astype(np.float64) - want)
+    assert err.mean() < 0.05, err.mean()
+    assert (err > 1).mean() < 0.001
+
+
+def test_fused_wrapper_rejects_bad_arguments():
+    coord = torch.zeros(2, 8)
+    kw = dict(sharp=True, samples=8, k_candidates=4, max_disp=4)
+    with pytest.raises(ValueError):
+        tkp.polylines_scanline_fused(coord, torch.zeros(2, 7, 3), 0.0, **kw)
+    with pytest.raises(TypeError):
+        tkp.polylines_scanline_fused(coord.double(), torch.zeros(2, 8, 3), 0.0, **kw)
+    with pytest.raises(ValueError):
+        tkp.polylines_scanline_fused(coord, torch.zeros(2, 8, 3), 0.0, **dict(kw, samples=0))
+
+
+def _kernel_model(x, coord, colors, sharp, samples, max_disp, k=4):
+    """csrc/polylines.cu's column loop in float32 scalars: each group keeps
+    its winner across samples and looks again only where the sample passes
+    its own right end (upward) or the least left end before it (downward):
+    not at all where the group's bound (its K slots' largest e_hi, or least
+    e_lo) shows that none is hit, else building candidates in sweep order
+    until one is hit (upward from the one after the old winner). Returns
+    the colour sums and the number of looks per column."""
+    f = np.float32
+    n, w = x.shape
+    c = colors.shape[-1]
+    hw = f(0.45) if sharp else f(0.0)
+    e_hi, e_lo = tkp.endpoint_streams(x, coord, sharp)
+    bases = (tkp.search(torch.cummax(e_hi, -1).values, max_disp, True).numpy(),
+             tkp.search(torch.cummin(e_lo.flip(-1), -1).values.flip(-1), max_disp,
+                        False).numpy())
+    xs, cos, img = x.numpy(), coord.numpy(), colors.numpy()
+    eh, el = e_hi.numpy(), e_lo.numpy()
+    per = 2 if sharp else 1
+    inf = f(np.inf)
+
+    def segment(row, up, slot, within):
+        pl, pr = min(max(slot - 1, 0), w - 1), min(max(slot, 0), w - 1)
+        xl, col, xr, cor = xs[row, pl], cos[row, pl], xs[row, pr], cos[row, pr]
+        m_r = (cor if up else -cor) >= f(0.0)
+        if within:
+            x0, x1 = xr - hw, xr + hw
+            return x0, x1, abs(cor), abs(cor), pr, pr, bool(m_r and 0 <= slot < w and x1 > x0)
+        sl, sr = slot == 0, slot == w
+        m_l = (col if up else -col) >= f(0.0)
+        x0 = f(-w) if sl else xl + hw
+        x1 = f(2 * w) if sr else xr - hw
+        return (x0, x1, f(0.0) if sl else abs(col), f(0.0) if sr else abs(cor),
+                pr if sl else pl, pl if sr else pr,
+                bool((sl or sr or m_l or m_r) and 0 <= slot <= w and x1 > x0))
+
+    def update(st, up, row, base, s):
+        if st["hit"] != -2 and (s < st["until"] if up else not st["until"] < s):
+            return
+        st["looks"] += 1
+        start = st["hit"] + 1 if up and st["hit"] >= 0 else 0
+        # the group's bound: its K slots' largest e_hi or least e_lo
+        slots = range(base, min(base + k, w + 1)) if up else range(max(base - k + 1, 0), base + 1)
+        bound = max(eh[row, j] for j in slots) if up else min(el[row, j] for j in slots)
+        none = not bound > s if up else not bound < s
+        lim, g, st["hit"] = (bound if none else inf), (f(0.0), f(1.0), f(0.0), f(0.0), -1, -1, False), -1
+        for j in range(start, 0 if none else k * per):
+            i, q = divmod(j, per)
+            seg = segment(row, up, base + (i if up else -i), sharp and q == (1 if up else 0))
+            key = (seg[1] if seg[6] else -inf) if up else (seg[0] if seg[6] else inf)
+            if (key > s) if up else (key < s):
+                st["hit"], g = j, seg
+                break
+            if not up:
+                lim = min(lim, key)
+        st["until"] = (g[1] if st["hit"] >= 0 else inf) if up else lim
+        st["seg"] = g
+        st["denom"] = f(1.0) if abs(g[1] - g[0]) < f(1e-9) else g[1] - g[0]
+
+    sums = np.zeros(colors.shape, np.float32)
+    looks = 0
+    for row in range(n):
+        for col in range(w):
+            groups = [{"hit": -2, "looks": 0}, {"hit": -2, "looks": 0}]
+            acc = [f(0.0)] * c
+            for t in range(samples):
+                s = f(col) + f(t + 0.5) / f(samples)
+                cov, ips = [], []
+                for st, up, base in zip(groups, (True, False), bases):
+                    update(st, up, row, int(base[row, col]), s)
+                    x0, x1 = st["seg"][:2]
+                    cov.append(bool(st["hit"] >= 0 and x0 < s < x1))
+                    ips.append(min(max((s - x0) / st["denom"], f(0.0)), f(1.0)) if cov[-1]
+                               else f(0.0))
+                use_n = cov[1]
+                if cov[0] and cov[1]:
+                    cl = [st["seg"][2] * (f(1.0) - ip) + st["seg"][3] * ip
+                          for st, ip in zip(groups, ips)]
+                    use_n = bool(cl[1] > cl[0])
+                for ch in range(c):
+                    if not (cov[0] or cov[1]):
+                        st = groups[0] if groups[0]["hit"] >= 0 else groups[1]
+                        v = img[row, st["seg"][4], ch] if st["hit"] >= 0 else f(0.0)
+                    else:
+                        st, ip = groups[use_n], ips[use_n]
+                        v = img[row, st["seg"][4], ch] * (f(1.0) - ip) \
+                            + img[row, st["seg"][5], ch] * ip
+                    acc[ch] = acc[ch] + v
+            sums[row, col] = acc
+            looks += groups[0]["looks"] + groups[1]["looks"]
+    return sums, looks / (n * w)
+
+
+@pytest.mark.parametrize("sharp", [True, False])
+@pytest.mark.parametrize("h,w,div,sep,kind", FUSED_CASES)
+def test_kernel_model_matches_plain(h, w, div, sep, kind, sharp):
+    """The kernel's design, winners kept across samples, modelled column by
+    column in float32: sums bit-equal to the plain version."""
+    x, coord, img, max_disp = _rows(h, w, div, sep, kind)
+    want = tkp.polylines_scanline_plain(x, coord, img, sharp=sharp, samples=8, k_candidates=4,
+                                        max_disp=max_disp).numpy()
+    got, looks = _kernel_model(x, coord, img, sharp, 8, max_disp)
+    np.testing.assert_array_equal(got, want)
+    assert 2.0 <= looks <= 2.0 + 2 * 4 * 2

@@ -13,9 +13,12 @@ any failure ends the run with a non-zero exit code:
 2. kernels vs their plain PyTorch versions on the card, at the main path's
    shapes (12 frames of 1080x1920 as [12*1080, 1920] rows): the warp on the
    fixture depth and on uniform-noise depth, divergence +-4.5% of the width
-   with separation 0 and 1% (gap masks bit-equal; colours atol 1e-5 on the
+   with separation 0 and 1%, through the entry taking offsets and the fused
+   entry taking the depth (gap masks bit-equal; colours atol 1e-5 on the
    fixture, < 0.1% of pixels differing on noise), and the edge-distance
-   transform (bit-equal); the bounded gather against torch.gather at the
+   kernel through the entry taking masks (four mask pairs) and the fused
+   entry forming the blur's weights from fixture, noise and flat depth
+   (bit-equal); the bounded gather against torch.gather at the
    fills' shapes, int32 keys and a [B,1,H,W] index plane over [B,3,H,W]
    colour (bit-equal); the exact polylines against its plain version on
    the same 12 frames, sharp and soft, divergence +-4.5% with separation 0
@@ -47,9 +50,12 @@ any failure ends the run with a non-zero exit code:
    SD VAE in bfloat16 with seeded random weights (flash attention 130:
    13 UNet calls x 10 self-attentions), then one UNet CFG call and the
    whole warp_inpaint with the attention forced to its plain version;
-4. card vs CPU: the port's stereo_pipeline on 2 frames of 270x480 on the card
-   and on the CPU, gpu_warp and all ten fills, to the slice's tolerances,
-   and the three supersampled fills (the kernel route on the card, the twin
+4. card vs CPU: the division by a scalar each way (the share of values
+   that differ from the CPU's; `device.true_divide` must give the CPU's
+   bits) and pow at a few exponents; the port's stereo_pipeline on 2
+   frames of 270x480 on the card and on the CPU, blur off and on alike, gpu_warp (mask and depth outputs
+   bit-equal, colours within 1e-5) and all ten fills (uint8 bit-equal; the
+   hybrid fills within 1 LSB on at most HYBRID_SHARE), and the three supersampled fills (the kernel route on the card, the twin
    on the CPU) to the JAX package's kernel-vs-twin bound; the kernel route
    against the twin on the card at 1080p B=12, sharp to that bound, soft to
    a wider one (see `check_routes_1080p`);
@@ -57,25 +63,30 @@ any failure ends the run with a non-zero exit code:
    float32 with the same injected noise on the card and on the CPU;
 5. times with CUDA events (warm-up, then >= 10 iterations, fewer for the
    slowest plain versions): each kernel and its plain version at the main
-   path's shapes beside the bound (and torch.gather beside the gather), the
+   path's shapes beside the bound (and torch.gather beside the gather; the
+   warp and distance kernels through the fused entries the path launches,
+   beside the entries of the Pallas contracts, with the warp's prefilter
+   counts), the
    gpu_warp pipeline's ms/frame and fps at 1080p, batch 12, in float32 and
    bfloat16, and the fills' ms/frame at the same size (the three supersampled
    ones too), with stage breakdowns and device idle shares for gpu_warp and
-   polylines_sharp, exact and supersampled; the flash kernel,
+   polylines_sharp, exact and supersampled, and gpu_warp's blur and eye part
+   by part; the flash kernel,
    its plain version and `scaled_dot_product_attention` (a yardstick the
    port never calls) at the three shapes, the bf16 UNet CFG call, VAE
    encode and decode, and warp_inpaint per frame with its idle share; for
-   the kernels redesigned after their port (the gather, the flash
-   attention and both polylines kernels) their registers, spills and
-   shared memory from `-Xptxas -v`, for the gather of a colour plane its
+   the kernels redesigned after their port (all six) their registers,
+   spills and shared memory from `-Xptxas -v`, for the gather of a colour plane its
    bound, and for the polylines kernels their recounted operations beside
    their previous design's count. The polylines kernels are timed through
    the fused entries their routes launch.
 
 `--kernel-times` only builds and times the flash kernel (beside
-scaled_dot_product_attention), the gather (beside torch.gather) and both
+scaled_dot_product_attention), the gather (beside torch.gather), both
 polylines kernels (sharp and soft, through the entries that take x, and
-the fused entries where the tree has them) and prints one JSON line; with
+the fused entries where the tree has them), and the warp and distance
+kernels (through the entries of the Pallas contracts, and the fused
+entries where the tree has them) and prints one JSON line; with
 `--root DIR` it imports the package from DIR, so that a parent tree
 unpacked under `build/` and the change can be timed in turns in one call.
 
@@ -178,27 +189,51 @@ def fixture_frames(n: int, h: int, w: int):
     return imgs, deps
 
 
-def warp_rows_inputs(image, depth255, div_pct: float, sep_pct: float):
-    """The warp kernel's row arguments, computed as ops/warp.forward_warp
-    computes them (normalized depth, offsets, max_disp)."""
+def warp_max_disp(div_px: float, sep_px: float) -> int:
+    """ops/warp.forward_warp's displacement bound at exponent 2, convergence
+    0.5."""
     import math
+    return int(math.ceil(0.5 ** 2.0 * abs(div_px) + abs(sep_px))) + 4
+
+
+def warp_rows_inputs(image, depth255, div_pct: float, sep_pct: float):
+    """The warp kernel's row arguments for the entry that takes offsets,
+    computed as the fused entry's plain composition computes them
+    (normalized depth, offsets, max_disp)."""
     from comfystereo_tpu_torch.ops import depth as depth_ops
     b, h, w, c = image.shape
     div_px, sep_px = depth_ops.percent_to_px(div_pct, sep_pct, w)
     nd = depth_ops.normalize_depth(depth255)
     off = depth_ops.pixel_offsets(nd, div_px, sep_px, 2.0, 0.5, prenormalized=True)
-    max_disp = int(math.ceil(0.5 ** 2.0 * abs(div_px) + abs(sep_px))) + 4
     return (off.reshape(b * h, w).contiguous(), nd.reshape(b * h, w).contiguous(),
             image.reshape(b * h, w, c).contiguous(),
-            dict(gradient_threshold=1.5, max_stretch=8, max_disp=max_disp))
+            dict(gradient_threshold=1.5, max_stretch=8, max_disp=warp_max_disp(div_px, sep_px)))
+
+
+def warp_fused_inputs(image, depth255, div_pct: float, sep_pct: float):
+    """The fused warp entry's arguments, as ops/warp.forward_warp passes
+    them: the depth rows, each image's min and max, the colour rows and the
+    keywords."""
+    import torch
+    from comfystereo_tpu_torch.ops import depth as depth_ops
+    b, h, w, c = image.shape
+    div_px, sep_px = depth_ops.percent_to_px(div_pct, sep_pct, w)
+    rows = depth255.reshape(b * h, w).contiguous()
+    dmin, dmax = torch.aminmax(rows.reshape(b, h * w), dim=-1)
+    kw = dict(divergence_px=div_px, separation_px=sep_px, exponent=2.0, convergence_point=0.5,
+              gradient_threshold=1.5, max_stretch=8, max_disp=warp_max_disp(div_px, sep_px),
+              height=h)
+    return rows, dmin, dmax, image.reshape(b * h, w, c).contiguous(), kw
 
 
 def edge_masks(depth255):
-    """The depth blur's two edge masks as [rows, W] (ops/blur.py)."""
+    """The depth blur's two edge masks as [rows, W] (ops/blur.py, edge
+    threshold 20), dividing truly as the blur does."""
     import torch
     from comfystereo_tpu_torch.ops import blur
     grad = blur.sobel_x(depth255)
-    strong = torch.clamp(grad.abs() / 200.0, 0.0, 1.0) > 0.5
+    div = torch.full((), 200.0, device=depth255.device)
+    strong = torch.clamp(grad.abs() / div, 0.0, 1.0) > 0.5
     w = depth255.shape[-1]
     return (((grad > 0) & strong).reshape(-1, w).contiguous(),
             ((grad < 0) & strong).reshape(-1, w).contiguous())
@@ -230,7 +265,7 @@ def phase_kernels(dev, n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
     """Each kernel against its plain version on the same inputs."""
     import numpy as np
     import torch
-    from comfystereo_tpu_torch.kernels import distance, warp_kernel
+    from comfystereo_tpu_torch.kernels import distance
 
     imgs, deps = fixture_frames(n, h, w)
     image = torch.from_numpy(imgs).to(dev).float() / 255.0
@@ -238,35 +273,11 @@ def phase_kernels(dev, n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
     rng = np.random.default_rng(0)
     noise_d = torch.from_numpy(
         rng.uniform(0, 255, (n, h, w)).astype(np.float32)).to(dev)
-    warp_err = 0.0
     cases = [(kind, d, sign * DIV_PCT, sign * sep + 0.0, "float32")
              for kind, d in (("fixture", fixture_d), ("noise", noise_d))
              for sep in SEP_PCTS for sign in (1.0, -1.0)]
     cases.append(("fixture", fixture_d, DIV_PCT, 0.0, "bfloat16"))
-    for kind, d, div, sep, cdt in cases:
-        img = image.to(getattr(torch, cdt))
-        off, nd, rows, kw = warp_rows_inputs(img, d, div, sep)
-        out_k, gap_k = warp_kernel.warp_rows(off, nd, rows, **kw)
-        sync()
-        out_p, gap_p = warp_kernel.warp_rows_plain(off, nd, rows, **kw)
-        sync()
-        if not torch.equal(gap_k, gap_p):
-            raise AssertionError(
-                f"warp gap mask differs ({kind}, div {div}%, sep {sep}%): "
-                f"{int((gap_k != gap_p).sum())} px")
-        err = (out_k.float() - out_p.float()).abs()
-        max_err = float(err.max())
-        off_px = float((err.amax(-1) > 1e-5).float().mean())
-        if kind == "fixture":
-            if max_err > 1e-5:
-                raise AssertionError(f"warp colour error {max_err} > 1e-5 "
-                                     f"(div {div}%, sep {sep}%, {cdt})")
-            warp_err = max(warp_err, max_err)
-        elif off_px >= 0.001:
-            raise AssertionError(f"warp colours differ on {off_px:.5f} of noise "
-                                 f"pixels (div {div}%, sep {sep}%)")
-        log(f"  warp {kind} div {div:+.1f}% sep {sep:.1f}% {cdt}: gap bit-equal, "
-            f"max |err| {max_err:.3g}, px > 1e-5: {off_px:.6f}")
+    warp_err = check_warp(image, cases)
     masks = [edge_masks(fixture_d), edge_masks(noise_d)]
     masks.append(tuple(torch.from_numpy(rng.random((n * h, w)) < p).to(dev)
                        for p in (0.001, 0.0)))  # sparse edges, and none at all
@@ -277,14 +288,27 @@ def phase_kernels(dev, n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
         sync()
         if not (torch.equal(kl, pl) and torch.equal(kr, pr)):
             raise AssertionError("edge distances differ from the plain version")
-    log(f"phase 2: warp kernel vs plain on [{n * h}, {w}] rows: gap masks "
-        f"bit-equal in {len(cases)} cases, fixture max |err| {warp_err:.3g}; "
-        f"distance kernel bit-equal on {len(masks)} mask pairs")
+    flat_d = torch.full_like(fixture_d, 77.0)
+    depths = (("fixture", fixture_d), ("noise", noise_d), ("flat", flat_d))
+    for kind, d in depths:
+        kw = dict(edge_threshold=20.0, mask_radius=20, falloff=2.0, height=h)
+        rows = d.reshape(-1, w).contiguous()
+        kl, kr = distance.edge_weights_fused(rows, **kw)
+        sync()
+        pl, pr = distance.edge_weights_plain(rows, **kw)
+        sync()
+        if not (torch.equal(kl, pl) and torch.equal(kr, pr)):
+            raise AssertionError(f"edge weights (fused entry) differ from plain ({kind})")
+    log(f"phase 2: warp kernel vs plain on [{n * h}, {w}] rows, both entries: gap masks "
+        f"bit-equal in {len(cases)} cases each, fixture max |err| {warp_err:.3g}; "
+        f"distance kernel bit-equal on {len(masks)} mask pairs, its fused entry on "
+        f"{len(depths)} depths (fixture, noise, flat)")
+    del flat_d, masks
     n_gather = check_gather(dev, n, h, w)
     n_poly = check_polylines(dev, image * 255.0,
                              {"fixture": fixture_d, "noise": noise_d})
     n_ss = check_polylines_ss(image * 255.0, {"fixture": fixture_d, "noise": noise_d})
-    del image, fixture_d, noise_d, masks
+    del image, fixture_d, noise_d
     flash_err = check_flash(dev)
     log(f"phase 2 ok: warp, distance, gather ({n_gather} cases), polylines "
         f"({n_poly} cases), supersampled polylines ({n_ss} cases) and flash "
@@ -292,6 +316,49 @@ def phase_kernels(dev, n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
     return {"warp_max_abs_err": warp_err, "distance_max_abs_err": 0.0,
             "gather_max_abs_err": 0.0, "polylines_max_abs_err": 0.0,
             "polylines_ss_max_abs_err": 0.0, "flash_max_abs_err": flash_err}
+
+
+def check_warp(image, cases) -> float:
+    """Both warp entries against their plain versions on each case (kind,
+    depth, divergence %, separation %, colour dtype): the entry taking
+    offsets and nd, and the fused entry, which forms them from the depth.
+    Gap masks bit-equal; colours within 1e-5 on the fixture, under 0.1% of
+    pixels differing on noise. Returns the fixture's max |err|."""
+    import torch
+    from comfystereo_tpu_torch.kernels import warp_kernel
+    warp_err = 0.0
+    for kind, d, div, sep, cdt in cases:
+        img = image.to(getattr(torch, cdt))
+        off, nd, rows, kw = warp_rows_inputs(img, d, div, sep)
+        depth_rows, dmin, dmax, _, fkw = warp_fused_inputs(img, d, div, sep)
+        runs = (("rows", lambda: warp_kernel.warp_rows(off, nd, rows, **kw),
+                 lambda: warp_kernel.warp_rows_plain(off, nd, rows, **kw)),
+                ("fused", lambda: warp_kernel.warp_rows_fused(depth_rows, dmin, dmax, rows, **fkw),
+                 lambda: warp_kernel.warp_rows_fused_plain(depth_rows, dmin, dmax, rows, **fkw)))
+        for entry, kernel, plain in runs:
+            out_k, gap_k = kernel()
+            sync()
+            out_p, gap_p = plain()
+            sync()
+            if not torch.equal(gap_k, gap_p):
+                raise AssertionError(
+                    f"warp gap mask differs ({entry}, {kind}, div {div}%, sep {sep}%): "
+                    f"{int((gap_k != gap_p).sum())} px")
+            err = (out_k.float() - out_p.float()).abs()
+            max_err = float(err.max())
+            off_px = float((err.amax(-1) > 1e-5).float().mean())
+            if kind == "fixture":
+                if max_err > 1e-5:
+                    raise AssertionError(f"warp colour error {max_err} > 1e-5 ({entry}, "
+                                         f"div {div}%, sep {sep}%, {cdt})")
+                warp_err = max(warp_err, max_err)
+            elif off_px >= 0.001:
+                raise AssertionError(f"warp colours differ on {off_px:.5f} of noise "
+                                     f"pixels ({entry}, div {div}%, sep {sep}%)")
+            log(f"  warp {entry} {kind} div {div:+.1f}% sep {sep:.1f}% {cdt}: gap bit-equal, "
+                f"max |err| {max_err:.3g}, px > 1e-5: {off_px:.6f}")
+            del out_k, gap_k, out_p, gap_p, err
+    return warp_err
 
 
 def flash_inputs(dev, bh: int, nq: int, nk: int, d: int, seed: int = 0):
@@ -507,7 +574,8 @@ def read_launches():
 
 
 # Kernels redesigned after their port, and in which PR.
-REDESIGNED = {"gather": "PR 5", "flash_attention": "PR 5"}
+REDESIGNED = {"warp_kernel": "PR 7", "distance": "PR 7", "gather": "PR 5",
+              "polylines_exact": "PR 6", "polylines": "PR 6", "flash_attention": "PR 5"}
 
 
 def ptxas_usage(name: str) -> str:
@@ -522,7 +590,9 @@ def ptxas_usage(name: str) -> str:
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
             args = re.findall(r"L[bi](\d+)E", m.group(1))
-            fn = f"<{','.join(args)}>" if args else "kernel"
+            colour = ("bf16," if "nv_bfloat16" in m.group(1) else
+                      "f32," if re.search(r"kernelIfL", m.group(1)) else "")
+            fn = f"<{colour}{','.join(args)}>" if args else "kernel"
             spill = "?"
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
@@ -698,37 +768,64 @@ def phase_main_path_supersampled(dev, img_d, dep_d, bgr, dep_bgr):
     return out
 
 
+def check_division(dev) -> None:
+    """Why the port divides by scalars with device.true_divide: on the card
+    PyTorch divides a float32 tensor by a Python scalar (or a 0-dim CPU
+    tensor) as a product with the scalar's rounded reciprocal, while the CPU
+    divides truly; a 0-dim tensor on the card divides truly. Prints the
+    share of 2^24 uniform values in [0, 500) that differ from the CPU's x / d
+    each way, and fails unless the 0-dim card tensor (what true_divide uses)
+    gives the CPU's bits. Also the shares for torch.pow at a few exponents,
+    which only ATen's special cases (2, 3, -1, ...) keep equal."""
+    import torch
+    from comfystereo_tpu_torch.device import true_divide
+    x = torch.rand(1 << 24, generator=torch.Generator().manual_seed(0)) * 500.0
+    xd = x.to(dev)
+    for d in (13.0, 255.0, 20.0):
+        cpu = x / d
+        shares = {"python scalar": (xd / d).cpu(),
+                  "0-dim CPU tensor": (xd / torch.tensor(d)).cpu(),
+                  "0-dim card tensor (true_divide)": true_divide(xd, d).cpu()}
+        shares = {k: float((v != cpu).float().mean()) for k, v in shares.items()}
+        if shares["0-dim card tensor (true_divide)"] != 0.0:
+            raise AssertionError(f"true_divide by {d} differs from the CPU on the card")
+        log(f"  x / {d:g}, card vs CPU, share of values differing: " + ", ".join(
+            f"{k} {v:.6f}" for k, v in shares.items()))
+    y = x / 500.0
+    log("  torch.pow(x, e), card vs CPU, share of values differing: " + ", ".join(
+        f"e={e:g} {float(((y.to(dev) ** e).cpu() != y ** e).float().mean()):.6f}"
+        for e in (2.0, 3.0, 1.0, 0.5, 1.7)))
+
+
 def phase_card_vs_cpu(dev, n: int = 2, h: int = 270, w: int = 480):
     """stereo_pipeline on the card and on the CPU, to the slice's tolerances."""
     import torch
     from comfystereo_tpu_torch import StereoConfig, stereo_pipeline
 
+    check_division(dev)
     imgs, deps = fixture_frames(n, h, w)
     image = torch.from_numpy(imgs).float() / 255.0
     depth = torch.from_numpy(deps).float() / 255.0
     modes = ("left-right", "top-bottom", "red-cyan-anaglyph")
     for blur in (False, True):
+        # Blur on or off, the same rules: every division by a scalar divides
+        # truly on the card as on the CPU (device.true_divide), and the
+        # fused kernels divide in IEEE arithmetic, so the blurred depth is
+        # bit-equal and so are the offsets the warp forms from it.
         cfg = StereoConfig(modes=modes, depth_map_blur=blur)
         gpu = stereo_pipeline(image.to(dev), depth.to(dev), cfg)
         cpu = stereo_pipeline(image, depth, cfg)
-        mask_off = float((gpu["mask"].cpu() != cpu["mask"]).float().mean())
+        if not torch.equal(gpu["mask"].cpu(), cpu["mask"]):
+            raise AssertionError(f"mask card vs CPU differs (blur {blur})")
         for k in ("left_depth", "right_depth"):
-            err = float((gpu[k].cpu() - cpu[k]).abs().max())
-            if err > 1e-5:
-                raise AssertionError(f"{k} card vs CPU {err} > 1e-5 (blur {blur})")
-        for g, c in zip(gpu["stereo"], cpu["stereo"]):
-            g = g.cpu()
-            if blur:
-                q = (torch.trunc(g * 255) - torch.trunc(c * 255)).abs()
-                ok = float((q <= 1).float().mean()) >= 0.999
-            else:
-                ok = float((g - c).abs().max()) <= 1e-5
-            if not ok:
-                raise AssertionError(f"colours card vs CPU out of tolerance (blur {blur})")
-        if (mask_off > 0.001) if blur else (mask_off > 0):
-            raise AssertionError(f"mask card vs CPU differs on {mask_off} (blur {blur})")
-        log(f"  card vs CPU gpu_warp blur={blur}: mask mismatch {mask_off:.6f}, "
-            "within tolerance")
+            if not torch.equal(gpu[k].cpu(), cpu[k]):
+                raise AssertionError(f"{k} card vs CPU differs (blur {blur}): max |err| "
+                                     f"{float((gpu[k].cpu() - cpu[k]).abs().max())}")
+        err = max(float((g.cpu() - c).abs().max()) for g, c in zip(gpu["stereo"], cpu["stereo"]))
+        if err > 1e-5:
+            raise AssertionError(f"colours card vs CPU {err} > 1e-5 (blur {blur})")
+        log(f"  card vs CPU gpu_warp blur={blur}: mask and depth outputs bit-equal, colours "
+            f"max |err| {err:.3g}")
     for fill in FILLS:
         for blur in (False, True):
             cfg = StereoConfig(modes=modes, depth_map_blur=blur, fill_technique=fill)
@@ -736,18 +833,14 @@ def phase_card_vs_cpu(dev, n: int = 2, h: int = 270, w: int = 480):
             cpu = stereo_pipeline(image, depth, cfg)
             mask_off = float((gpu["mask"].cpu() != cpu["mask"]).float().mean())
             off, worst = fill_diff(gpu["stereo"], cpu["stereo"])
-            hybrid = fill.startswith("hybrid")
-            # Bit-equal in uint8, except the hybrid fills: their float32
-            # prefix sums round differently on the card (torch.cumsum's
-            # parallel scan) than on the CPU, and differences of prefix sums
-            # cancel, so they are held to 1 LSB on at most HYBRID_SHARE of
-            # the values (measured on the H100: 28.9% blur off, 28.6% on).
-            # Blur on adds the depth blur's card-vs-CPU tolerance (phase 4 of
-            # gpu_warp): at most 0.1% of values may differ.
-            if hybrid:
+            # Bit-equal in uint8, blur on or off, except the hybrid fills:
+            # their float32 prefix sums round differently on the card
+            # (torch.cumsum's parallel scan) than on the CPU, and differences
+            # of prefix sums cancel, so they are held to 1 LSB on at most
+            # HYBRID_SHARE of the values (measured on the H100: 28.9% blur
+            # off, 28.6% on).
+            if fill.startswith("hybrid"):
                 ok = worst <= 1 and off <= HYBRID_SHARE and mask_off <= 0.001
-            elif blur:
-                ok = off <= 0.001 and mask_off <= 0.001
             else:
                 ok = worst == 0 and mask_off == 0
             if not ok:
@@ -1168,21 +1261,8 @@ def phase_times(dev, launches, errs, smi: str, name: str,
     image = torch.from_numpy(imgs).to(dev).float() / 255.0
     depth255 = torch.from_numpy(deps).to(dev).float()
 
-    off, nd, rows, kw = warp_rows_inputs(image, depth255, DIV_PCT, 0.0)
-    warp_ms = time_ms(lambda: warp_kernel.warp_rows(off, nd, rows, **kw))
-    warp_plain_ms = time_ms(lambda: warp_kernel.warp_rows_plain(off, nd, rows, **kw))
-    lo, hi = warp_kernel._window(off, kw["max_disp"])
-    candidates = float(((hi - lo + 1).clamp(min=0) * w).sum())
-    warp_bytes = sum(t.numel() * t.element_size() for t in (off, nd, rows)) \
-        + rows.numel() * rows.element_size() + n * h * w  # out + bool gap
-    warp_ops = 8.0 * candidates  # sub, div, sub, 2 mul, add, add, sub per candidate
-
-    ml, mr = edge_masks(depth255)
-    dist_ms = time_ms(lambda: distance.edge_distances(ml, mr))
-    dist_plain_ms = time_ms(lambda: distance.edge_distances_plain(ml, mr))
-    dist_bytes = 2 * ml.numel() + 2 * 4 * ml.numel()
-    dist_ops = 4.0 * 2 * ml.numel()  # compare + select per direction per mask
-
+    warp_t = warp_times(image, depth255)
+    dist_t = distance_times(depth255)
     gather_t = gather_times(dev, n, h, w)
     poly_t = polylines_times(image * 255.0, depth255)
     ss_t = polylines_ss_times(image * 255.0, depth255)
@@ -1202,11 +1282,13 @@ def phase_times(dev, launches, errs, smi: str, name: str,
 
     kernels = [
         entry("warp_rows", "comfystereo_tpu_torch/csrc/warp_kernel.cu",
-              "comfystereo_tpu/pallas/warp_kernel.py:222", warp_ms, warp_plain_ms,
-              warp_bytes, warp_ops, errs["warp_max_abs_err"]),
+              "comfystereo_tpu/pallas/warp_kernel.py:222", warp_t["ms"], warp_t["plain_ms"],
+              warp_t["bytes"], warp_t["ops"], errs["warp_max_abs_err"],
+              redesigned=REDESIGNED["warp_kernel"]),
         entry("edge_distances", "comfystereo_tpu_torch/csrc/distance.cu",
-              "comfystereo_tpu/pallas/distance.py:59", dist_ms, dist_plain_ms,
-              dist_bytes, dist_ops, errs["distance_max_abs_err"]),
+              "comfystereo_tpu/pallas/distance.py:59", dist_t["ms"], dist_t["plain_ms"],
+              dist_t["bytes"], dist_t["ops"], errs["distance_max_abs_err"],
+              redesigned=REDESIGNED["distance"]),
         entry("bounded_take_along_w", "comfystereo_tpu_torch/csrc/gather.cu",
               "comfystereo_tpu/pallas/gather.py:100", gather_t["ms"],
               gather_t["plain_ms"], gather_t["bytes"], 0.0,
@@ -1214,11 +1296,11 @@ def phase_times(dev, launches, errs, smi: str, name: str,
         entry("polylines_exact_rows", "comfystereo_tpu_torch/csrc/polylines_exact.cu",
               "comfystereo_tpu/pallas/polylines_exact_kernel.py:630", poly_t["ms"],
               poly_t["plain_ms"], poly_t["bytes"], poly_t["ops"],
-              errs["polylines_max_abs_err"]),
+              errs["polylines_max_abs_err"], redesigned=REDESIGNED["polylines_exact"]),
         entry("polylines_scanline", "comfystereo_tpu_torch/csrc/polylines.cu",
               "comfystereo_tpu/pallas/polylines_kernel.py:281", ss_t["ms"],
               ss_t["plain_ms"], ss_t["bytes"], ss_t["ops"],
-              errs["polylines_ss_max_abs_err"]),
+              errs["polylines_ss_max_abs_err"], redesigned=REDESIGNED["polylines"]),
     ]
     for k in kernels:
         lib = "" if k["library_ms"] is None else f", library {k['library_ms']:.4f} ms"
@@ -1249,11 +1331,21 @@ def phase_times(dev, launches, errs, smi: str, name: str,
         f"{ss_t['found_share']:.4f}, winners looked for and found "
         f"{ss_t['scans_per_column']:.3f} times per column, building "
         f"{ss_t['built_per_column']:.3f} candidates [{smi}]")
-    for mod in ("gather", "polylines_exact", "polylines"):
+    log(f"  warp_rows (fused entry, the path's) float32 {warp_t['ms']:.4f} ms/launch, "
+        f"bfloat16 {warp_t['bf16_ms']:.4f}; entry taking offsets {warp_t['rows_ms']:.4f}; "
+        f"{warp_t['bytes']:.4g} bytes ({warp_t['bytes'] / (n * h * w):.0f} B/px), "
+        f"{warp_t['ops']:.4g} operations; prefilter per column: row window "
+        f"{warp_t['window_mean']:.2f} candidates, walked {warp_t['walked_mean']:.3f}, divided "
+        f"{warp_t['tested_mean']:.3f} [{smi}]")
+    log(f"  edge_distances: fused entry (the path's) {dist_t['ms']:.4f} ms/launch, "
+        f"{dist_t['bytes']:.4g} bytes; mask entry {dist_t['masks_ms']:.4f} ms [{smi}]")
+    for mod in ("warp_kernel", "distance", "gather", "polylines_exact", "polylines"):
         log(f"  {mod} build [{smi}]: {ptxas_usage(mod)}")
-    log(f"  dynamic shared memory per CTA [{smi}]: gather {gather.smem_bytes(w, w, 1)} B "
-        f"(keys), {gather.smem_bytes(w, w, 3)} B (plane); polylines_exact "
-        f"{polylines_exact.smem_bytes(w)} B; polylines {polylines.smem_bytes(w, 8)} B")
+    log(f"  dynamic shared memory per CTA [{smi}]: warp {warp_kernel.smem_bytes(w)} B "
+        f"(widest row {warp_kernel.MAX_WIDTH}); distance {distance.smem_bytes(w)} B; gather "
+        f"{gather.smem_bytes(w, w, 1)} B (keys), {gather.smem_bytes(w, w, 3)} B (plane); "
+        f"polylines_exact {polylines_exact.smem_bytes(w)} B; polylines "
+        f"{polylines.smem_bytes(w, 8)} B")
 
     pipeline = {}
     depth01 = depth255 / 255.0
@@ -1270,12 +1362,121 @@ def phase_times(dev, launches, errs, smi: str, name: str,
     log("  gpu_warp stages per chunk (float32): " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in stages.items()) + f" [{smi}]")
     pipeline["float32"]["stages_ms"] = stages
+    parts = blur_and_eye_parts(image, depth01, cfg)
+    log("  gpu_warp blur and left eye, part by part per chunk (float32): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in parts.items()) + f" [{smi}]")
+    pipeline["float32"]["parts_ms"] = parts
     pipeline["float32"].update(idle_share(
         "gpu_warp", lambda: stereo_pipeline(image, depth01, cfg),
         pipeline["float32"]["ms_per_chunk"], smi))
     pipeline["fills"] = fill_times(image, depth01, smi)
     log(f"phase 5 ok: times on {name} ({smi})")
     return kernels, pipeline
+
+
+def warp_times(image, depth255):
+    """The warp kernel on the left eye's rows of 12 frames at 1080p: the
+    fused entry the path launches (float32, and bfloat16 colour), the entry
+    taking offsets, and the fused entry's plain composition; the fused
+    entry's bytes (depth 4 B, colour in and out, gap 1 B per pixel) and the
+    operations it does on this input (`warp_work`)."""
+    import torch
+    from comfystereo_tpu_torch.kernels import warp_kernel as wk
+    rows, dmin, dmax, img, kw = warp_fused_inputs(image, depth255, DIV_PCT, 0.0)
+    off, nd, _, rkw = warp_rows_inputs(image, depth255, DIV_PCT, 0.0)
+    img_bf16 = img.to(torch.bfloat16)
+    out = {"ms": time_ms(lambda: wk.warp_rows_fused(rows, dmin, dmax, img, **kw)),
+           "bf16_ms": time_ms(lambda: wk.warp_rows_fused(rows, dmin, dmax, img_bf16, **kw)),
+           "rows_ms": time_ms(lambda: wk.warp_rows(off, nd, img, **rkw)),
+           "plain_ms": time_ms(lambda: wk.warp_rows_fused_plain(rows, dmin, dmax, img, **kw),
+                               iters=3, warmup=1),
+           "bytes": 4.0 * rows.numel() + 2.0 * img.numel() * img.element_size() + rows.numel()}
+    out.update(warp_work(off, nd, rkw, img.shape[-1]))
+    return out
+
+
+def warp_work(off, nd, kw, c: int):
+    """The float and integer operations of the fused warp entry on these
+    rows, counted from csrc/warp_kernel.cu and this input (the counts of
+    tests/torch_warp_model.py:walk_model, the kernel's prefilter modelled):
+    - per pixel: nd and the offset (12 at exponent 2), dl (1), the segment's
+      interval (16), the row's offset range (2), the border search and gap
+      interpolation (20) and the bilinear taps (4 per channel);
+    - per group of 32 columns, per segment of the row's window it looks at
+      for the warp's window: 6;
+    - per candidate walked: the interval test (3);
+    - per candidate inside its segment's interval: sw, frac, mstart and the
+      tests (12), zz and the rule (6)."""
+    import importlib.util
+    from comfystereo_tpu_torch.kernels import warp_kernel as wk
+    spec = importlib.util.spec_from_file_location(
+        "torch_warp_model", os.path.join(HERE, "tests", "torch_warp_model.py"))
+    model = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(model)
+    n, w = off.shape
+    _, _, walked, tested = model.walk_model(off, nd, kw["gradient_threshold"],
+                                            kw["max_stretch"], kw["max_disp"])
+    lo, hi = wk._window(off, kw["max_disp"])
+    window = (hi - lo + 1).clamp(min=0).float()
+    groups = (w + 31) // 32
+    ops = (n * w * (51.0 + 4 * c) + 6.0 * float(((window + 31) * groups).sum())
+           + 3.0 * float(walked.sum()) + 18.0 * float(tested.sum()))
+    return {"ops": ops, "window_mean": float(window.mean()),
+            "walked_mean": float(walked.float().mean()),
+            "tested_mean": float(tested.float().mean())}
+
+
+def distance_times(depth255):
+    """The distance kernel on 12 frames of 1080p depth: the fused entry the
+    blur launches, its plain composition and the mask entry on the same
+    depth's masks; the fused entry's bytes (depth 4 B in, two weights 8 B
+    out per pixel) and operations (about 30 per pixel: the Sobel sums 4, the
+    edge strength and masks 7, and per mask the distance 4 and the weight
+    5)."""
+    from comfystereo_tpu_torch.kernels import distance
+    n, h, w = depth255.shape
+    rows = depth255.reshape(-1, w).contiguous()
+    kw = dict(edge_threshold=20.0, mask_radius=20, falloff=2.0, height=h)
+    ml, mr = edge_masks(depth255)
+    return {"ms": time_ms(lambda: distance.edge_weights_fused(rows, **kw)),
+            "plain_ms": time_ms(lambda: distance.edge_weights_plain(rows, **kw)),
+            "masks_ms": time_ms(lambda: distance.edge_distances(ml, mr)),
+            "bytes": 12.0 * rows.numel(), "ops": 30.0 * rows.numel()}
+
+
+def blur_and_eye_parts(image, depth01, cfg):
+    """ms per chunk of the blur's parts (the fused edge-weights kernel, the
+    weights' vertical box means, the depth's horizontal box mean, both
+    eyes' blends) and of the left eye's (each image's min and max, the
+    fused warp kernel), each timed alone on the pipeline's inputs."""
+    import torch
+    from comfystereo_tpu_torch import pipeline as pipe
+    from comfystereo_tpu_torch.kernels import distance, warp_kernel
+    from comfystereo_tpu_torch.ops import blur
+    d255 = pipe._depth255(depth01)
+    n, h, w = d255.shape
+    rows = d255.reshape(-1, w).contiguous()
+    kw = dict(edge_threshold=cfg.depth_blur_edge_threshold,
+              mask_radius=int(cfg.depth_blur_strength),
+              falloff=blur._f32(cfg.depth_blur_falloff), height=h)
+    wl, wr = (t.reshape(d255.shape) for t in distance.edge_weights_fused(rows, **kw))
+    radius = int(cfg.depth_blur_vert_smooth)
+    blurred = blur.box_blur_w(d255, int(round(cfg.depth_blur_strength)))
+    left_d, _ = pipe._blurred_eye_depths(d255, cfg)
+    src = pipe._eye_source(image, cfg)
+    eye_rows, dmin, dmax, img, fkw = warp_fused_inputs(src, left_d, cfg.eye_divergences()[0],
+                                                       -cfg.separation)
+    return {
+        "weights_kernel": time_ms(lambda: distance.edge_weights_fused(rows, **kw)),
+        "weights_vertical_box": time_ms(lambda: [torch.clamp(blur.box_blur_h(x, radius), 0.0, 1.0)
+                                                 for x in (wl, wr)]),
+        "depth_horizontal_box": time_ms(lambda: blur.box_blur_w(d255, int(round(
+            cfg.depth_blur_strength)))),
+        "blend": time_ms(lambda: [x * blurred + (1.0 - x) * d255 for x in (wl, wr)]),
+        "eye_min_max": time_ms(lambda: torch.aminmax(eye_rows.reshape(n, -1), dim=-1)),
+        "eye_kernel": time_ms(lambda: warp_kernel.warp_rows_fused(eye_rows, dmin, dmax, img,
+                                                                  **fkw)),
+    }
 
 
 def gather_times(dev, n: int, h: int, w: int):
@@ -1567,7 +1768,8 @@ def kernel_times(dev, smi: str, root: str) -> None:
     import torch
     import torch.nn.functional as F
     from comfystereo_tpu_torch.kernels import _build, flash_attention as fa, gather
-    _build.build(["flash_attention", "gather", "polylines_exact", "polylines"])
+    _build.build(["warp_kernel", "distance", "flash_attention", "gather", "polylines_exact",
+                  "polylines"])
     out = {"root": root, "card": smi, "flash": {}, "gather": {}}
     for bh, nq, nk, d in FLASH_SHAPES:
         q, k, v = flash_inputs(dev, bh, nq, nk, d, seed=1)
@@ -1587,7 +1789,33 @@ def kernel_times(dev, smi: str, root: str) -> None:
         "plane_torch_gather_ms": time_ms(lambda: torch.gather(planes, -1, plane64))}
     del keys, idx, planes, idx_plane, plane64, idx64
     out["polylines"] = polylines_kernel_times(dev)
+    out.update(warp_distance_kernel_times(dev))
     print(json.dumps({"kernel_times": out}), flush=True)
+
+
+def warp_distance_kernel_times(dev):
+    """ms per launch of the warp kernel on the left eye's rows of 12 frames
+    at 1080p (phase 5's inputs), float32 colour, and of the distance kernel
+    on the same depth: the entries that every tree has (offsets and nd; the
+    two masks) and, where the tree has them, the fused entries (the depth)."""
+    import torch
+    from comfystereo_tpu_torch.kernels import distance, warp_kernel as wk
+    imgs, deps = fixture_frames(FRAMES, HEIGHT, WIDTH)
+    image = torch.from_numpy(imgs).to(dev).float() / 255.0
+    depth255 = torch.from_numpy(deps).to(dev).float()
+    off, nd, rows, kw = warp_rows_inputs(image, depth255, DIV_PCT, 0.0)
+    ml, mr = edge_masks(depth255)
+    out = {"warp": {"rows_ms": time_ms(lambda: wk.warp_rows(off, nd, rows, **kw))},
+           "distance": {"masks_ms": time_ms(lambda: distance.edge_distances(ml, mr))}}
+    if hasattr(wk, "warp_rows_fused"):
+        d_rows, dmin, dmax, img, fkw = warp_fused_inputs(image, depth255, DIV_PCT, 0.0)
+        out["warp"]["fused_ms"] = time_ms(lambda: wk.warp_rows_fused(d_rows, dmin, dmax, img,
+                                                                     **fkw))
+    if hasattr(distance, "edge_weights_fused"):
+        d_rows = depth255.reshape(-1, WIDTH).contiguous()
+        out["distance"]["fused_ms"] = time_ms(lambda: distance.edge_weights_fused(
+            d_rows, edge_threshold=20.0, mask_radius=20, falloff=2.0, height=HEIGHT))
+    return out
 
 
 def polylines_kernel_times(dev):

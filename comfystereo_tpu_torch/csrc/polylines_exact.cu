@@ -156,7 +156,7 @@ __global__ void __launch_bounds__(kThreads, 5) polylines_exact_kernel(
   float* s_bmin = s_cl + w;  // per 32-column block: min and max of m
   float* s_bmax = s_bmin + nb;
   int* s_list = reinterpret_cast<int*>(s_bmax + nb);  // entry j of thread t at j * kThreads + t
-  __shared__ float s_red[64];
+  __shared__ float s_red[2 * cs::kThreads / 32];
 
   const long long row = blockIdx.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;

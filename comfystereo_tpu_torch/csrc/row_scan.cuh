@@ -4,7 +4,11 @@
 // k * blockDim.x, so neighbouring threads touch neighbouring addresses) for
 // loads, stores and shared-memory sweeps, and contiguous chunks (thread t owns
 // columns [t * per, (t + 1) * per)) for scans along the row, where each thread
-// runs its chunk sequentially and one block scan joins the chunks.
+// runs its chunk sequentially and one block scan joins the chunks. The warp
+// and distance kernels keep one bit per column instead (a `__ballot_sync`
+// word per 32 columns in shared memory) and find a column's nearest set bit
+// in its own word (`lanes_upto`, `lanes_from`) or, for the warp, with the
+// warp-wide search `last_set_before`.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -57,25 +61,47 @@ __device__ T block_exclusive_scan(T v, T identity, T* buf, typename NoDeduce<T>:
 }
 
 // Min and max of one float per thread over the block; every thread gets both.
-// `red` holds 64 floats.
+// `red` holds 2 * kThreads / 32 floats.
 __device__ inline void block_min_max(float& lo, float& hi, float* red) {
   for (int o = 16; o > 0; o >>= 1) {
     lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
     hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
   }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int kWarps = kThreads / 32;
   if (lane == 0) {
     red[warp] = lo;
-    red[32 + warp] = hi;
+    red[kWarps + warp] = hi;
   }
   __syncthreads();
   lo = red[0];
-  hi = red[32];
-  for (int k = 1; k < kThreads / 32; ++k) {
+  hi = red[kWarps];
+  for (int k = 1; k < kWarps; ++k) {
     lo = fminf(lo, red[k]);
-    hi = fmaxf(hi, red[32 + k]);
+    hi = fmaxf(hi, red[kWarps + k]);
   }
   __syncthreads();
+}
+
+// Lanes at or below, and at or above, this lane.
+__device__ __forceinline__ unsigned lanes_upto(int lane) { return 0xffffffffu >> (31 - lane); }
+__device__ __forceinline__ unsigned lanes_from(int lane) { return 0xffffffffu << lane; }
+
+// Column of the last set bit of words[0, g), or -1: the whole warp searches
+// back from word g - 1, 32 words a step (one ballot each), and every lane
+// gets the result. Bit b of word k is column 32 k + b.
+__device__ inline int last_set_before(const unsigned* words, int g) {
+  const int lane = threadIdx.x & 31;
+  for (int top = g - 1; top >= 0; top -= 32) {
+    const unsigned v = top - lane >= 0 ? words[top - lane] : 0u;
+    const unsigned hit = __ballot_sync(0xffffffffu, v != 0u);
+    if (hit != 0u) {
+      const int near = __ffs(hit) - 1;  // the nearest word with a set bit
+      const unsigned word = __shfl_sync(0xffffffffu, v, near);
+      return (top - near) * 32 + 31 - __clz(word);
+    }
+  }
+  return -1;
 }
 
 // Raise the kernel's dynamic shared-memory limit when it needs more than the

@@ -31,3 +31,14 @@ def as_float_tensor(x, device: torch.device) -> torch.Tensor:
     t = x.detach() if isinstance(x, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(x))
     return t.to(device=device, dtype=torch.float32)
+
+
+def true_divide(x: torch.Tensor, divisor: float) -> torch.Tensor:
+    """x / divisor in IEEE division on every device. On CUDA, PyTorch divides
+    a float tensor by a Python scalar as a product with the scalar's rounded
+    reciprocal (ATen's `div_true_kernel_cuda`), which differs from the CPU's
+    (and XLA's) true division in the last bit of some values; a divisor held
+    in a 0-dim float32 tensor on x's device is divided truly."""
+    if x.device.type == "cpu":
+        return x / divisor
+    return x / torch.full((), divisor, dtype=torch.float32, device=x.device)

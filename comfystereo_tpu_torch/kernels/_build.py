@@ -42,10 +42,15 @@ _F = ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "distance": {
         "cs_edge_distances": [_P, _P, _P, _P, _I, _I, _P],
+        "cs_edge_weights": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P],
     },
     "warp_kernel": {
         "cs_warp_rows_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
         "cs_warp_rows_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+        "cs_warp_rows_depth_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I,
+                                   _F, _F, _I, _I, _P],
+        "cs_warp_rows_depth_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I,
+                                    _F, _F, _I, _I, _P],
     },
     "gather": {
         "cs_gather_rows_b32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],

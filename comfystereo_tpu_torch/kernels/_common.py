@@ -3,6 +3,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 
@@ -35,3 +36,21 @@ def point_x(coord: torch.Tensor, sep_px: float) -> torch.Tensor:
     the polylines routes form them and their fused kernels repeat."""
     cols = torch.arange(coord.shape[-1], dtype=torch.float32, device=coord.device)
     return cols + 0.5 + coord + sep_px
+
+
+# Modes of csrc/torch_math.cuh:torch_pow, in its order.
+_POW_EXACT = {0.0: 0, 1.0: 1, 0.5: 2, -0.5: 3, -1.0: 4}
+_POW_FLOAT = {2.0: 5, 3.0: 6, -2.0: 7}
+POW_GENERAL = 8
+
+
+def pow_mode(exponent: float) -> int:
+    """The branch that torch.pow(float32 tensor, exponent) takes on CUDA, for
+    the fused kernels to repeat: ATen fills 1 for 0 and copies for 1 (tested
+    in double), takes sqrt, rsqrt and the reciprocal for 0.5, -0.5 and -1,
+    then x*x, x*x*x and 1/(x*x) for 2, 3 and -2 once the exponent is
+    rounded to float32, and powf otherwise."""
+    e = float(exponent)
+    if e in _POW_EXACT:
+        return _POW_EXACT[e]
+    return _POW_FLOAT.get(float(np.float32(e)), POW_GENERAL)

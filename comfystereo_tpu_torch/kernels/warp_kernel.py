@@ -2,20 +2,30 @@
 
 Kernel: `csrc/warp_kernel.cu`, CUDA C++ for sm_90a, replacing the Pallas
 kernel `comfystereo_tpu/pallas/warp_kernel.py:warp_scanline`. One CTA per
-image row: the row's offset range sets the candidate window, the segment
-planes sit in shared memory, each column walks the window in ascending
-source order with the strict `zz > zbest + 1e-6` rule, block scans find the
-gap borders, and the bilinear taps read the HWC image directly. At the main
-path's shapes it is bound by bytes (about 33 B per pixel in float32); the
-candidate walk, about 8 float operations per candidate, comes next. See the
-source's header for the design.
+image row. Each segment (columns i and i + 1) keeps in shared memory the
+interval of columns it can cover; each warp narrows the row's candidate
+window to the segments whose intervals meet its 32 columns; each column
+walks that window in ascending source order and forms the exact test and the strict `zz > zbest + 1e-6` rule only
+inside a segment's interval; ballot words and warp-wide searches find the
+gap borders; the bilinear taps read the HWC image directly. It is bound by
+bytes: 29 B per pixel in float32 through the fused entry. See the source's
+header for the design and for why the interval drops nothing.
 
-`warp_rows` launches the kernel for CUDA tensors and runs the plain version,
-`warp_rows_plain`, for CPU tensors. The plain version is the PyTorch
-translation of the JAX package's `ops/warp.py:_forward_warp_monotone`, in its
-float32 expression forms (no lerp or addcmul, which may fuse into FMAs), with
-one addition: each row's candidates are limited to that row's own window, as
-the kernel limits them, which the tests show changes no winner.
+Two entries, each launching the kernel for CUDA tensors and running its
+plain version for CPU tensors:
+- `warp_rows(offset, nd, image, ...)`, the Pallas kernel's contract; plain
+  version `warp_rows_plain`, the PyTorch translation of the JAX package's
+  `ops/warp.py:_forward_warp_monotone` in its float32 expression forms (no
+  lerp or addcmul, which may fuse into FMAs), with one addition: each row's
+  candidates are limited to that row's own window, as the kernel limits
+  them, which the tests show changes no winner;
+- `warp_rows_fused(depth, dmin, dmax, image, ...)`, which `ops/warp.py`
+  launches: it forms the normalised depth and the offsets in the kernel;
+  plain version `warp_rows_fused_plain`, the composition normalize ->
+  offsets -> `warp_rows_plain`.
+
+On the card a row may hold at most `MAX_WIDTH` columns (shared memory,
+`smem_bytes`); a wider row raises before any launch.
 """
 from __future__ import annotations
 
@@ -24,11 +34,40 @@ from typing import Tuple
 import torch
 
 from . import _common
+from ..ops import depth as depth_ops
 from ..ops import scan
 
 LAUNCHES = 0  # kernel launches since the last reset (plain-version calls don't count)
 
 _COLOR_DTYPES = (torch.float32, torch.bfloat16)
+# Shared memory one CTA may opt in to on sm_90 (227 KB), and the kernel's own.
+SMEM_LIMIT = 232448
+_STATIC_SMEM = 64
+
+
+def smem_bytes(w: int) -> int:
+    """Shared memory of one CTA for a row of w columns: five 4-byte planes
+    (dl, nd, interval, src, z), one bit per column, and 64 static bytes (the
+    row's offset range, per warp)."""
+    return 20 * w + 4 * ((w + 31) // 32) + _STATIC_SMEM
+
+
+def _max_width() -> int:
+    w = SMEM_LIMIT // 20
+    while smem_bytes(w) > SMEM_LIMIT:
+        w -= 1
+    return w
+
+
+MAX_WIDTH = _max_width()  # 11,547 columns
+
+
+def check_fits(w: int) -> None:
+    """Raise unless a row of w columns fits in one CTA's shared memory."""
+    if smem_bytes(w) > SMEM_LIMIT:
+        raise ValueError(f"warp_rows: a row of {w} columns needs {smem_bytes(w)} bytes of "
+                         f"shared memory, over the {SMEM_LIMIT} one CTA holds (at most "
+                         f"{MAX_WIDTH} columns)")
 
 
 def _window(offset: torch.Tensor, max_disp: int):
@@ -40,20 +79,13 @@ def _window(offset: torch.Tensor, max_disp: int):
     return d_lo.clamp(min=-r_static), d_hi.clamp(max=r_static)
 
 
-def warp_rows_plain(offset: torch.Tensor, nd: torch.Tensor, image: torch.Tensor,
-                    gradient_threshold: float, max_stretch: int, max_disp: int
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """offset, nd: [N, W] float32; image: [N, W, C]. Returns (warped
-    [N, W, C] in image's dtype, gap [N, W] bool)."""
-    n, w = offset.shape
-    dev = offset.device
-    cols = torch.arange(w, dtype=torch.float32, device=dev)
-    colsi = torch.arange(w, device=dev)
+def _segments(offset: torch.Tensor, nd: torch.Tensor, gradient_threshold: float, r: int):
+    """Segment planes [5, N, W + 2r] (dl, safe width, zl, zr, mstart) and
+    the connection mask [N, W + 2r], padded with r columns of no segment
+    on each side and column W - 1, which holds none."""
+    w = offset.shape[-1]
+    cols = torch.arange(w, dtype=torch.float32, device=offset.device)
     dest = cols + offset
-
-    # Segment i joins columns i and i + 1; column w-1 holds no segment, and
-    # the window pads R columns of no segment on each side.
-    r = max_disp + 2
     conn = (offset[:, 1:] - offset[:, :-1]).abs() < gradient_threshold
     dl = dest[:, :-1]
     dr = dest[:, 1:]
@@ -61,31 +93,58 @@ def warp_rows_plain(offset: torch.Tensor, nd: torch.Tensor, image: torch.Tensor,
     safe_w = torch.where(width.abs() < 1e-4, 1.0, width)
     mstart = torch.floor(torch.minimum(dl, dr))
     segs = torch.stack([dl, safe_w, nd[:, :-1], nd[:, 1:], mstart])
-    segs = torch.nn.functional.pad(segs, (r, r + 1))
-    conn = torch.nn.functional.pad(conn, (r, r + 1))
+    return (torch.nn.functional.pad(segs, (r, r + 1)),
+            torch.nn.functional.pad(conn, (r, r + 1)))
 
-    d_lo_row, d_hi_row = _window(offset, max_disp)
-    zbest = torch.full((n, w), -1.0, dtype=torch.float32, device=dev)
-    src = torch.full((n, w), -1.0, dtype=torch.float32, device=dev)
-    for d in range(int(d_lo_row.min()), int(d_hi_row.max()) + 1):
-        i = colsi + d
-        dl_t, sw_t, zl_t, zr_t, ms_t = segs[:, :, r + d:r + d + w]
-        frac = (cols - dl_t) / sw_t
-        zz = zl_t * (1.0 - frac) + zr_t * frac
-        valid = (conn[:, r + d:r + d + w] & (i >= 0) & (i <= w - 2)
-                 & (frac >= 0.0) & (frac < 1.0)
-                 & (cols - ms_t < max_stretch)
-                 & (d >= d_lo_row) & (d <= d_hi_row))
-        better = valid & (zz > zbest + 1e-6)
+
+def _candidate(segs, conn, d: int, r: int, max_stretch: int):
+    """Segment i = col + d for every column: (accepted by the exact tests,
+    zz, source position), in the plain version's float32 forms."""
+    w = segs.shape[-1] - 2 * r
+    cols = torch.arange(w, dtype=torch.float32, device=segs.device)
+    i = torch.arange(w, device=segs.device) + d
+    dl_t, sw_t, zl_t, zr_t, ms_t = segs[:, :, r + d:r + d + w]
+    frac = (cols - dl_t) / sw_t
+    zz = zl_t * (1.0 - frac) + zr_t * frac
+    ok = (conn[:, r + d:r + d + w] & (i >= 0) & (i <= w - 2)
+          & (frac >= 0.0) & (frac < 1.0) & (cols - ms_t < max_stretch))
+    return ok, zz, i.float() + frac
+
+
+def _zbuffer(offset, nd, gradient_threshold, max_stretch, max_disp, allowed=None):
+    """The windowed z-max over candidate segments in ascending source index:
+    (src, zbest) [N, W], -1 where no segment covers the column. `allowed(d)`
+    may narrow the candidates further (the kernel's model)."""
+    n, w = offset.shape
+    r = max_disp + 2
+    segs, conn = _segments(offset, nd, gradient_threshold, r)
+    d_lo, d_hi = _window(offset, max_disp)
+    zbest = torch.full((n, w), -1.0, dtype=torch.float32, device=offset.device)
+    src = torch.full((n, w), -1.0, dtype=torch.float32, device=offset.device)
+    for d in range(int(d_lo.min()), int(d_hi.max()) + 1):
+        ok, zz, srcv = _candidate(segs, conn, d, r, max_stretch)
+        ok = ok & (d >= d_lo) & (d <= d_hi)
+        if allowed is not None:
+            ok = ok & allowed(d)
+        better = ok & (zz > zbest + 1e-6)
         zbest = torch.where(better, zz, zbest)
-        src = torch.where(better, i.float() + frac, src)
+        src = torch.where(better, srcv, src)
+    return src, zbest
 
+
+def _finish(src, zbest, image, max_disp):
+    """Disocclusion fill, clips and bilinear taps: (warped [N, W, C] in
+    image's dtype, gap [N, W] bool)."""
+    n, w = src.shape
+    dev = src.device
+    cols = torch.arange(w, dtype=torch.float32, device=dev)
+    colsi = torch.arange(w, device=dev)
     filled = src >= 0.0
     gap = ~filled
 
-    # Disocclusion fill: interpolate source positions between the gap's
-    # borders with a sqrt bias toward the background (lower z) side. The
-    # right border is the row's rightmost filled column (reference :399-404).
+    # Interpolate source positions between the gap's borders with a sqrt
+    # bias toward the background (lower z) side. The right border is the
+    # row's rightmost filled column (reference :399-404).
     (left_src, left_z), has_l = scan.forward_fill((src, zbest), filled)
     ln = scan.nearest_true_left(filled)
     rn = torch.where(filled, colsi, -1).amax(-1, keepdim=True)
@@ -121,41 +180,113 @@ def warp_rows_plain(offset: torch.Tensor, nd: torch.Tensor, image: torch.Tensor,
     return out.to(image.dtype), gap
 
 
+def warp_rows_plain(offset: torch.Tensor, nd: torch.Tensor, image: torch.Tensor,
+                    gradient_threshold: float, max_stretch: int, max_disp: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """offset, nd: [N, W] float32; image: [N, W, C]. Returns (warped
+    [N, W, C] in image's dtype, gap [N, W] bool)."""
+    src, zbest = _zbuffer(offset, nd, gradient_threshold, max_stretch, max_disp)
+    return _finish(src, zbest, image, max_disp)
+
+
+def _check_image(name: str, image: torch.Tensor, n: int, w: int, device) -> None:
+    if image.dim() != 3 or tuple(image.shape[:2]) != (n, w):
+        raise ValueError(f"{name}: image must be [{n}, {w}, C], got {tuple(image.shape)}")
+    if image.dtype not in _COLOR_DTYPES:
+        raise TypeError(f"{name}: colour dtype {image.dtype} not in {_COLOR_DTYPES}")
+    if image.device != device:
+        raise ValueError(f"{name}: image and rows on different devices")
+
+
+def _check_launch(name: str, image: torch.Tensor, w: int) -> None:
+    check_fits(w)
+    if image.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {image.device}")
+    c = image.shape[-1]
+    if c not in (1, 3):
+        raise ValueError(f"{name}: the CUDA kernel takes 1 or 3 channels, got {c}")
+    if not image.is_contiguous():
+        raise ValueError(f"{name}: image must be contiguous")
+
+
+def _launch(entry: str, before, image: torch.Tensor, after):
+    """Launch a C entry, `entry(*before, image, out, gap, n, w, c, *after,
+    stream)`, on the outputs it fills: (warped, gap)."""
+    global LAUNCHES
+    from . import _build
+
+    n, w, c = image.shape
+    out = torch.empty_like(image)
+    gap = torch.empty((n, w), dtype=torch.bool, device=image.device)
+    suffix = "f32" if image.dtype == torch.float32 else "bf16"
+    fn = getattr(_build.library("warp_kernel"), f"{entry}_{suffix}")
+    err = fn(*before, image.data_ptr(), out.data_ptr(), gap.data_ptr(), n, w, c, *after,
+             _common.stream_ptr(image.device))
+    _build.check(err, f"{entry} kernel launch")
+    LAUNCHES += 1
+    return out, gap
+
+
 def warp_rows(offset: torch.Tensor, nd: torch.Tensor, image: torch.Tensor, *,
               gradient_threshold: float, max_stretch: int, max_disp: int
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Warp [N, W] rows: the CUDA kernel for CUDA tensors (C of 1 or 3), the
     plain version for CPU tensors. offset, nd: [N, W] float32, contiguous;
     image: [N, W, C] float32 or bfloat16, contiguous."""
-    global LAUNCHES
     _common.check_rows("warp_rows", (offset, nd), torch.float32)
     n, w = offset.shape
-    if image.dim() != 3 or tuple(image.shape[:2]) != (n, w):
-        raise ValueError(f"warp_rows: image must be [{n}, {w}, C], got "
-                         f"{tuple(image.shape)}")
-    if image.dtype not in _COLOR_DTYPES:
-        raise TypeError(f"warp_rows: colour dtype {image.dtype} not in {_COLOR_DTYPES}")
-    if image.device != offset.device:
-        raise ValueError("warp_rows: image and offsets on different devices")
+    _check_image("warp_rows", image, n, w, offset.device)
     if offset.device.type == "cpu":
         return warp_rows_plain(offset, nd, image, gradient_threshold,
                                max_stretch, max_disp)
-    if offset.device.type != "cuda":
-        raise ValueError(f"warp_rows: unsupported device {offset.device}")
-    c = image.shape[-1]
-    if c not in (1, 3):
-        raise ValueError(f"warp_rows: the CUDA kernel takes 1 or 3 channels, got {c}")
-    if not image.is_contiguous():
-        raise ValueError("warp_rows: image must be contiguous")
-    from . import _build
+    _check_launch("warp_rows", image, w)
+    return _launch("cs_warp_rows", (offset.data_ptr(), nd.data_ptr()), image,
+                   (float(gradient_threshold), int(max_stretch), int(max_disp)))
 
-    out = torch.empty_like(image)
-    gap = torch.empty((n, w), dtype=torch.bool, device=offset.device)
-    lib = _build.library("warp_kernel")
-    fn = lib.cs_warp_rows_f32 if image.dtype == torch.float32 else lib.cs_warp_rows_bf16
-    err = fn(offset.data_ptr(), nd.data_ptr(), image.data_ptr(), out.data_ptr(),
-             gap.data_ptr(), n, w, c, float(gradient_threshold), int(max_stretch),
-             int(max_disp), _common.stream_ptr(offset.device))
-    _build.check(err, "warp_rows kernel launch")
-    LAUNCHES += 1
-    return out, gap
+
+def warp_rows_fused_plain(depth: torch.Tensor, dmin: torch.Tensor, dmax: torch.Tensor,
+                          image: torch.Tensor, *, divergence_px: float,
+                          separation_px: float, exponent: float, convergence_point: float,
+                          gradient_threshold: float, max_stretch: int, max_disp: int,
+                          height: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The composition the fused entry replaces: normalize_between ->
+    pixel_offsets -> `warp_rows_plain`, on [N, W] rows of N / height images."""
+    n, w = depth.shape
+    nd = depth_ops.normalize_between(depth.reshape(-1, height, w), dmin[:, None, None],
+                                     dmax[:, None, None])
+    off = depth_ops.pixel_offsets(nd, divergence_px, separation_px, exponent,
+                                  convergence_point, prenormalized=True)
+    return warp_rows_plain(off.reshape(n, w), nd.reshape(n, w), image, gradient_threshold,
+                           max_stretch, max_disp)
+
+
+def warp_rows_fused(depth: torch.Tensor, dmin: torch.Tensor, dmax: torch.Tensor,
+                    image: torch.Tensor, *, divergence_px: float, separation_px: float,
+                    exponent: float, convergence_point: float, gradient_threshold: float,
+                    max_stretch: int, max_disp: int, height: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Warp the rows of an eye from its depth: depth [N, W] float32 rows of
+    N / height images, dmin and dmax [N / height] float32 (each image's min
+    and max), image [N, W, C]. The CUDA kernel forms the normalised depth and
+    the offsets itself; CPU tensors take `warp_rows_fused_plain`."""
+    _common.check_rows("warp_rows_fused", (depth,), torch.float32)
+    n, w = depth.shape
+    if height <= 0 or n % height:
+        raise ValueError(f"warp_rows_fused: {n} rows are not images of {height} rows")
+    for t in (dmin, dmax):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (n // height,)
+                or t.device != depth.device or not t.is_contiguous()):
+            raise ValueError(f"warp_rows_fused: dmin and dmax must be contiguous float32 "
+                             f"[{n // height}] on {depth.device}")
+    _check_image("warp_rows_fused", image, n, w, depth.device)
+    kw = dict(divergence_px=divergence_px, separation_px=separation_px, exponent=exponent,
+              convergence_point=convergence_point, gradient_threshold=gradient_threshold,
+              max_stretch=max_stretch, max_disp=max_disp, height=height)
+    if depth.device.type == "cpu":
+        return warp_rows_fused_plain(depth, dmin, dmax, image, **kw)
+    _check_launch("warp_rows_fused", image, w)
+    return _launch("cs_warp_rows_depth", (depth.data_ptr(), dmin.data_ptr(), dmax.data_ptr()),
+                   image, (int(height), float(divergence_px), float(separation_px),
+                           float(exponent), _common.pow_mode(exponent),
+                           float(convergence_point), float(gradient_threshold),
+                           int(max_stretch), int(max_disp)))

@@ -6,7 +6,13 @@ Operates on [..., H, W] float32 depth in the 0-255 domain. Padding follows
 the reference's CPU variant: symmetric for Sobel, edge-replicate for the box
 blurs (scipy `mode='nearest'`). The box blurs are explicit sums of shifted
 slices in ascending window order, the order a sequential `reduce_window`
-adds in, so they round as the JAX package does.
+adds in, so they round as the JAX package does. Every division by a scalar
+is a true division on every device (`device.true_divide`), so the card
+gives the CPU's bits. The edge weights come from the edge-distance kernel's
+fused entry, which forms the Sobel gradient, the masks, the distances and
+the weights in one pass (`kernels/distance.py:edge_weights_fused`); its
+plain version's pieces, `sobel_x`, `edge_masks` and `distance_weight`, live
+there too and are used here.
 
 Only the blur on the main path is ported; `gaussian_blur`,
 `edge_selective_blur` and `direction_aware_blur` wait for the fills.
@@ -17,14 +23,9 @@ import numpy as np
 import torch
 
 from . import scan
-from ..kernels.distance import edge_distances
-
-
-def _symmetric_pad1(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Pad one element on each side of `dim`, repeating the edge (numpy's
-    'symmetric' for a pad of 1)."""
-    n = x.shape[dim]
-    return torch.cat([x.narrow(dim, 0, 1), x, x.narrow(dim, n - 1, 1)], dim=dim)
+from ..device import true_divide
+from ..kernels.distance import edge_masks, sobel_x  # noqa: F401  (the blur's own)
+from ..kernels.distance import distance_weight, edge_weights_fused
 
 
 def _edge_pad(x: torch.Tensor, dim: int, left: int, right: int) -> torch.Tensor:
@@ -46,15 +47,6 @@ def _window_sum(xp: torch.Tensor, dim: int, n: int, out_len: int) -> torch.Tenso
     return acc
 
 
-def sobel_x(x: torch.Tensor) -> torch.Tensor:
-    """Horizontal Sobel gradient with symmetric (scipy 'reflect') padding:
-    smooth [1,2,1] along H, then central difference along W. [..., H, W]."""
-    xs = _symmetric_pad1(x, -2)
-    smooth = xs[..., :-2, :] + 2.0 * xs[..., 1:-1, :] + xs[..., 2:, :]
-    sw = _symmetric_pad1(smooth, -1)
-    return sw[..., :, 2:] - sw[..., :, :-2]
-
-
 def box_blur_w(x: torch.Tensor, n: int) -> torch.Tensor:
     """Box mean of width n along W with edge-replicate padding; window
     placement of scipy.ndimage.convolve1d(mode='nearest'):
@@ -62,7 +54,7 @@ def box_blur_w(x: torch.Tensor, n: int) -> torch.Tensor:
     if n <= 1:
         return x
     xp = _edge_pad(x, -1, n - 1 - n // 2, n // 2)
-    return _window_sum(xp, -1, n, x.shape[-1]) / n
+    return true_divide(_window_sum(xp, -1, n, x.shape[-1]), n)
 
 
 def box_blur_h(x: torch.Tensor, radius: int) -> torch.Tensor:
@@ -71,12 +63,7 @@ def box_blur_h(x: torch.Tensor, radius: int) -> torch.Tensor:
         return x
     n = 2 * radius + 1
     xp = _edge_pad(x, -2, radius, radius)
-    return _window_sum(xp, -2, n, x.shape[-2]) / n
-
-
-def _weight(dist: torch.Tensor, mask_radius: int, falloff_exponent: float):
-    return torch.pow(torch.clamp(1.0 - dist / mask_radius, 0.0, 1.0),
-                     falloff_exponent)
+    return true_divide(_window_sum(xp, -2, n, x.shape[-2]), n)
 
 
 def edge_distance_weight(edge_mask: torch.Tensor, mask_radius: int,
@@ -91,19 +78,7 @@ def edge_distance_weight(edge_mask: torch.Tensor, mask_radius: int,
     dist_l = torch.where(left_idx >= 0, cols - left_idx.float(), large)
     right_idx = scan.nearest_true_right(edge_mask)
     dist_r = torch.where(right_idx < w, right_idx.float() - cols, large)
-    return _weight(torch.minimum(dist_l, dist_r), mask_radius, falloff_exponent)
-
-
-def _edge_weights_pair(left_mask: torch.Tensor, right_mask: torch.Tensor,
-                       mask_radius: int, falloff_exponent: float):
-    """Both eyes' distance weights through the edge-distance kernel (its
-    plain version for CPU tensors)."""
-    shape = left_mask.shape
-    w = shape[-1]
-    dl, dr = edge_distances(left_mask.reshape(-1, w).contiguous(),
-                            right_mask.reshape(-1, w).contiguous())
-    return (_weight(dl.reshape(shape), mask_radius, falloff_exponent),
-            _weight(dr.reshape(shape), mask_radius, falloff_exponent))
+    return distance_weight(torch.minimum(dist_l, dist_r), mask_radius, falloff_exponent)
 
 
 def _f32(x: float) -> float:
@@ -126,14 +101,12 @@ def directional_motion_blur(depth: torch.Tensor, blur_strength: float,
         return depth, depth
     n = int(round(blur_strength))
     depth = depth.float()
-    grad = sobel_x(depth)
-    edge_str = torch.clamp(
-        grad.abs() / _f32(_f32(10.0) * _f32(edge_threshold)), 0.0, 1.0)
-    left_edges = (grad > 0) & (edge_str > 0.5)
-    right_edges = (grad < 0) & (edge_str > 0.5)
-
-    wl, wr = _edge_weights_pair(left_edges, right_edges, int(blur_mask_width),
-                                _f32(falloff_exponent))
+    h, w = depth.shape[-2:]
+    wl, wr = edge_weights_fused(depth.reshape(-1, w).contiguous(),
+                                edge_threshold=edge_threshold,
+                                mask_radius=int(blur_mask_width),
+                                falloff=_f32(falloff_exponent), height=h)
+    wl, wr = wl.reshape(depth.shape), wr.reshape(depth.shape)
     if vert_smooth_px > 0:
         wl = torch.clamp(box_blur_h(wl, int(vert_smooth_px)), 0.0, 1.0)
         wr = torch.clamp(box_blur_h(wr, int(vert_smooth_px)), 0.0, 1.0)

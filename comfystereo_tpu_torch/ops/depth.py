@@ -17,8 +17,14 @@ def normalize_depth(depth: torch.Tensor) -> torch.Tensor:
     A flat depth map maps to all-zeros (reference :1591-1594).
     """
     d = depth.float()
-    dmin = d.amin(dim=(-2, -1), keepdim=True)
-    dmax = d.amax(dim=(-2, -1), keepdim=True)
+    return normalize_between(d, d.amin(dim=(-2, -1), keepdim=True),
+                             d.amax(dim=(-2, -1), keepdim=True))
+
+
+def normalize_between(d: torch.Tensor, dmin: torch.Tensor,
+                      dmax: torch.Tensor) -> torch.Tensor:
+    """(d - dmin) / (dmax - dmin) for float32 d and a min and max that
+    broadcast against it; zeros where dmax - dmin <= 1e-6."""
     rng = dmax - dmin
     return torch.where(rng > 1e-6, (d - dmin) / torch.clamp(rng, min=1e-6),
                        0.0)

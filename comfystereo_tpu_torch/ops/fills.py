@@ -27,6 +27,7 @@ import torch
 
 from . import depth as depth_ops
 from . import scan
+from ..device import true_divide
 from ..kernels.gather import bounded_take_along_w
 
 _BIG = 2 ** 30
@@ -342,7 +343,7 @@ def edge_aware_gap_fill(image: torch.Tensor, mask: torch.Tensor,
             nm = m[:, sl_h, sl_w]
             ws = float(np.exp(-(di * di + dj * dj) / (2.0 * sigma_s * sigma_s)))
             diff = guidance - g[:, sl_h, sl_w]
-            wr = torch.exp(-(diff * diff) / (2.0 * sigma_r * sigma_r))
+            wr = torch.exp(true_divide(-(diff * diff), 2.0 * sigma_r * sigma_r))
             wgt = nm * ws * wr
             num = num + img[:, sl_h, sl_w, :] * wgt[..., None]
             den = den + wgt

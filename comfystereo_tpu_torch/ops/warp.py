@@ -8,8 +8,10 @@ the lowest source index); disocclusion gaps are filled by interpolating
 source positions between the gap borders with a sqrt bias toward the
 background side; colours are sampled bilinearly.
 
-The work is done row by row in `kernels/warp_kernel.py`: the CUDA kernel for
-CUDA tensors, the plain PyTorch version for CPU tensors.
+The work is done row by row in `kernels/warp_kernel.py`: its fused entry
+forms the normalised depth and the offsets from the eye's depth and each
+image's min and max, then warps (the CUDA kernel for CUDA tensors, the plain
+PyTorch composition for CPU tensors).
 """
 from __future__ import annotations
 
@@ -18,8 +20,7 @@ from typing import Tuple
 
 import torch
 
-from . import depth as depth_ops
-from ..kernels.warp_kernel import warp_rows
+from ..kernels.warp_kernel import warp_rows_fused
 
 
 def forward_warp(image: torch.Tensor, depth: torch.Tensor, divergence_px: float,
@@ -34,10 +35,6 @@ def forward_warp(image: torch.Tensor, depth: torch.Tensor, divergence_px: float,
     separation_px: floats (pixels). Returns (warped [B,H,W,C] in the colour
     dtype, gap_mask [B,H,W] bool, True = disocclusion).
     """
-    nd = depth_ops.normalize_depth(depth)
-    offset = depth_ops.pixel_offsets(
-        nd, divergence_px, separation_px, stereo_offset_exponent,
-        convergence_point, prenormalized=True)
     # Static displacement bound: |offset| <= max(conv, 1-conv)^exp * |div| + |sep|.
     cmax = max(abs(convergence_point), abs(1.0 - convergence_point))
     bound = (cmax ** stereo_offset_exponent) * abs(divergence_px) \
@@ -46,9 +43,12 @@ def forward_warp(image: torch.Tensor, depth: torch.Tensor, divergence_px: float,
     if image.dtype not in (torch.float32, torch.bfloat16):
         image = image.float()
     b, h, w, c = image.shape
-    warped, gap = warp_rows(
-        offset.reshape(b * h, w).contiguous(), nd.reshape(b * h, w).contiguous(),
-        image.reshape(b * h, w, c).contiguous(),
-        gradient_threshold=float(gradient_threshold),
-        max_stretch=int(max_stretch), max_disp=max_disp)
+    rows = depth.float().reshape(b * h, w).contiguous()
+    dmin, dmax = torch.aminmax(rows.reshape(b, h * w), dim=-1)
+    warped, gap = warp_rows_fused(
+        rows, dmin, dmax, image.reshape(b * h, w, c).contiguous(),
+        divergence_px=divergence_px, separation_px=separation_px,
+        exponent=stereo_offset_exponent, convergence_point=convergence_point,
+        gradient_threshold=float(gradient_threshold), max_stretch=int(max_stretch),
+        max_disp=max_disp, height=h)
     return warped.reshape(b, h, w, c), gap.reshape(b, h, w)

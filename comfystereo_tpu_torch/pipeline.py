@@ -23,6 +23,7 @@ from typing import Dict
 import torch
 
 from .config import StereoConfig
+from .device import true_divide
 from .ops import blur as blur_ops
 from .ops import depth as depth_ops
 from .ops import fills, pack, polylines, polylines_exact, warp
@@ -152,11 +153,11 @@ def _outputs(left, right, left_d: torch.Tensor, right_d: torch.Tensor,
         outs_u8 = tuple(pack.pack_mode(left_eye, right_eye, m) for m in cfg.modes)
         # Black-pixel mask on the first packed output (GenerateStereo.py:355-361).
         mask = (outs_u8[0].sum(-1) == 0).float()
-        outs = tuple(o / 255.0 for o in outs_u8)
+        outs = tuple(true_divide(o, 255.0) for o in outs_u8)
     return {
         "stereo": outs,
-        "left_depth": torch.clamp(left_d / 255.0, 0.0, 1.0),
-        "right_depth": torch.clamp(right_d / 255.0, 0.0, 1.0),
+        "left_depth": torch.clamp(true_divide(left_d, 255.0), 0.0, 1.0),
+        "right_depth": torch.clamp(true_divide(right_d, 255.0), 0.0, 1.0),
         "mask": mask,
     }
 

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..config import StereoConfig
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device, true_divide
 from ..pipeline import stereo_pipeline
 
 try:
@@ -81,9 +81,9 @@ def device_chunk(bgr_u8, dep_bgr_u8, cfg: StereoConfig,
     dev = resolve_device(device)
     bgr = torch.as_tensor(bgr_u8).to(dev)
     dep = torch.as_tensor(dep_bgr_u8).to(dev)
-    img = bgr.flip(-1).float() / 255.0
+    img = true_divide(bgr.flip(-1).float(), 255.0)
     d = dep.float()
-    gray = (0.2989 * d[..., 2] + 0.5870 * d[..., 1] + 0.1140 * d[..., 0]) / 255.0
+    gray = true_divide(0.2989 * d[..., 2] + 0.5870 * d[..., 1] + 0.1140 * d[..., 0], 255.0)
     sbs = stereo_pipeline(img, gray, cfg)["stereo"][0].float()
     return torch.trunc(torch.clamp(sbs * 255.0, 0.0, 255.0)).to(torch.uint8).flip(-1)
 

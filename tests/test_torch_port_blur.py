@@ -110,7 +110,10 @@ def test_edge_weights_match():
     want = np.asarray(jfn(jnp.asarray(ml), jnp.float32(2.0)))
     got = tblur.edge_distance_weight(_t(ml), 20, 2.0).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
-    pair_l, pair_r = tblur._edge_weights_pair(_t(ml), _t(mr), 20, 2.0)
+    w = ml.shape[-1]
+    dl, dr = tdist.edge_distances(_t(ml).reshape(-1, w), _t(mr).reshape(-1, w))
+    pair_l = tblur.distance_weight(dl.reshape(ml.shape), 20, 2.0)
+    pair_r = tblur.distance_weight(dr.reshape(mr.shape), 20, 2.0)
     np.testing.assert_array_equal(pair_l.numpy(), got)
     np.testing.assert_array_equal(
         pair_r.numpy(), tblur.edge_distance_weight(_t(mr), 20, 2.0).numpy())
@@ -134,3 +137,100 @@ def test_blur_zero_strength_identity():
     d = _t(_depth255())
     gl, gr = tblur.directional_motion_blur(d, 0.0, 20.0)
     assert gl is d and gr is d
+
+
+def _ballot_distances(mask):
+    """A model of csrc/distance.cu's search on [N, W] bool: 32-column words
+    of mask bits, the last set column up to each word and the first from
+    each word on (the scans), then per column its own word or one lookup."""
+    n, w = mask.shape
+    g = (w + 31) // 32
+    bits = np.zeros((n, g * 32), bool)
+    bits[:, :w] = mask
+    words = bits.reshape(n, g, 32)
+    lane = np.arange(32)
+    last_in = np.where(words.any(-1), np.where(words, lane, -1).max(-1), -1)
+    first_in = np.where(words.any(-1), np.where(words, lane, 99).min(-1), 99)
+    base = np.arange(g) * 32
+    last = np.maximum.accumulate(np.where(last_in >= 0, base + last_in, -1), axis=1)
+    first = np.minimum.accumulate(np.where(first_in < 99, base + first_in, 2 ** 31 - 1)[:, ::-1],
+                                  axis=1)[:, ::-1]
+    cols = np.arange(w)
+    gi, li = cols // 32, cols % 32
+    own = words[:, gi, :]                                        # [n, w, 32]
+    left_own = np.where(own & (lane <= li[:, None]), lane, -1).max(-1)
+    right_own = np.where(own & (lane >= li[:, None]), lane, 99).min(-1)
+    prev = np.where(gi > 0, last[:, np.maximum(gi - 1, 0)], -1)
+    nxt = np.where(gi + 1 < g, first[:, np.minimum(gi + 1, g - 1)], 2 ** 31 - 1)
+    l_col = np.where(left_own >= 0, gi * 32 + left_own, prev)
+    r_col = np.where(right_own < 99, gi * 32 + right_own, nxt)
+    lf = np.where(l_col >= 0, l_col, -1e9).astype(np.float32)
+    rf = np.where(r_col < 2 ** 31 - 1, r_col, 1e9).astype(np.float32)
+    colf = cols.astype(np.float32)
+    return np.minimum(colf - lf, rf - colf)
+
+
+@pytest.mark.parametrize("w", [7, 32, 33, 64, 100, 300])
+def test_ballot_model_bit_equal_to_plain(w):
+    """The kernel's word search, modelled in numpy, equals
+    edge_distances_plain bit for bit: rows with no edge, edges only in the
+    first or the last word, single edges, sparse and dense rows."""
+    rng = np.random.default_rng(w)
+    m = rng.random((10, w)) < np.array([0, 0, 0, 0, 0, 0.02, 0.1, 0.5, 0.9, 1.0])[:, None]
+    m[1, 0] = True                      # only the first column
+    m[2, w - 1] = True                  # only the last column
+    m[3, : min(w, 32)] = rng.random(min(w, 32)) < 0.3   # first word only
+    m[4, max(0, w - 32):] = rng.random(min(w, 32)) < 0.3  # last word only
+    want = tdist.edge_distances_plain(_t(m), _t(m))[0].numpy()
+    np.testing.assert_array_equal(_ballot_distances(m), want)
+
+
+@pytest.mark.parametrize("falloff,threshold,radius", [(2.0, 20.0, 20), (1.0, 6.0, 5),
+                                                      (1.7, 12.5, 9), (0.5, 20.0, 3)])
+def test_edge_weights_plain_is_the_composition(falloff, threshold, radius):
+    """edge_weights_fused (on the CPU, its plain version) equals the blur's
+    former composition bit for bit: Sobel-x, the masks, the distance
+    transform's distances and clip(1 - d / r, 0, 1) ** falloff, image by
+    image (the Sobel pads each image's top and bottom on its own)."""
+    d = _depth255(b=3, seed=2)
+    b, h, w = d.shape
+    wl, wr = tdist.edge_weights_fused(_t(d).reshape(-1, w), edge_threshold=threshold,
+                                      mask_radius=radius, falloff=falloff, height=h)
+    grad = tblur.sobel_x(_t(d))
+    thr = float(np.float32(np.float32(10.0) * np.float32(threshold)))
+    strong = torch.clamp(grad.abs() / thr, 0.0, 1.0) > 0.5
+    for got, mask in ((wl, (grad > 0) & strong), (wr, (grad < 0) & strong)):
+        dist = tdist.edge_distances_plain(mask.reshape(-1, w), mask.reshape(-1, w))[0]
+        want = torch.pow(torch.clamp(1.0 - dist / radius, 0.0, 1.0), falloff)
+        assert torch.equal(got, want)
+
+
+def test_directional_blur_noise_depth_matches():
+    """directional_motion_blur through the fused entry against JAX on noise
+    depth, where edges are everywhere (atol 1e-4, as above)."""
+    d = np.random.default_rng(4).uniform(0, 255, (2, H, W)).astype(np.float32)
+    kw = dict(blur_strength=20, edge_threshold=20, blur_mask_width=20,
+              falloff_exponent=2.0, vert_smooth_px=6)
+    jl, jr = jblur.directional_motion_blur(jnp.asarray(d), **kw)
+    tl, tr = tblur.directional_motion_blur(_t(d), **kw)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=0, atol=1e-4)
+
+
+def test_distance_shared_memory_rule():
+    """24 B per 32 columns; the widest row that fits, and a clear error past
+    it before any launch, through either entry (meta tensors stand for the
+    card's)."""
+    assert tdist.smem_bytes(1920) == 24 * 60
+    assert tdist.MAX_WIDTH == 309920
+    assert tdist.smem_bytes(tdist.MAX_WIDTH) <= tdist.SMEM_LIMIT
+    assert tdist.smem_bytes(tdist.MAX_WIDTH + 1) > tdist.SMEM_LIMIT
+    w = tdist.MAX_WIDTH + 1
+    m = torch.empty((1, w), dtype=torch.bool, device="meta")
+    before = tdist.LAUNCHES
+    with pytest.raises(ValueError, match="309920 columns"):
+        tdist.edge_distances(m, m)
+    with pytest.raises(ValueError, match="309920 columns"):
+        tdist.edge_weights_fused(torch.empty((1, w), device="meta"), edge_threshold=20.0,
+                                 mask_radius=20, falloff=2.0, height=1)
+    assert tdist.LAUNCHES == before

@@ -12,6 +12,7 @@ import torch
 from comfystereo_tpu_torch import FILL_TECHNIQUES, StereoConfig, stereo_pipeline
 from comfystereo_tpu_torch.kernels import (distance, flash_attention, gather, polylines,
                                            polylines_exact, warp_kernel)
+from comfystereo_tpu_torch.ops import blur as blur_ops
 from comfystereo_tpu_torch.ops import depth as depth_ops
 from comfystereo_tpu_torch.ops import polylines as polylines_ops
 from comfystereo_tpu_torch.utils import fixtures
@@ -71,6 +72,193 @@ def test_distance_kernel_matches_plain(dev, p):
     assert distance.LAUNCHES == before + 1
     pl, pr = distance.edge_distances_plain(ml, mr)
     assert torch.equal(kl, pl) and torch.equal(kr, pr)
+
+
+def _eye_depth(kinds, h, w, seed=0):
+    """[len(kinds) * h, w] float32 0-255 depth rows, one image per kind:
+    the fixture scene, uniform noise, flat (range 0), or a horizontal ramp
+    (no Sobel-x edge anywhere)."""
+    rng = np.random.default_rng(seed)
+    images = []
+    for kind in kinds:
+        if kind == "fixture":
+            d = fixtures.create_depth_map(h, w).astype(np.float32)
+        elif kind == "noise":
+            d = rng.uniform(0, 255, (h, w)).astype(np.float32)
+        elif kind == "flat":
+            d = np.full((h, w), 77.0, np.float32)
+        else:
+            d = np.repeat(np.linspace(0.0, 255.0, h, dtype=np.float32)[:, None], w, 1)
+        images.append(d)
+    return np.concatenate(images)
+
+
+def _warp_fused_case(dev, kinds, h, w, div_px, sep_px, exponent, dtype, channels):
+    depth = torch.from_numpy(_eye_depth(kinds, h, w)).to(dev)
+    b = len(kinds)
+    dmin, dmax = torch.aminmax(depth.reshape(b, h * w), dim=-1)
+    img = np.concatenate([fixtures.create_test_image(h, w)] * b).astype(np.float32) / 255.0
+    image = torch.from_numpy(np.ascontiguousarray(img[..., :channels])).to(dev, dtype)
+    cmax = 0.5 ** exponent
+    kw = dict(divergence_px=div_px, separation_px=sep_px, exponent=exponent,
+              convergence_point=0.5, gradient_threshold=1.5, max_stretch=8,
+              max_disp=int(np.ceil(cmax * abs(div_px) + abs(sep_px))) + 4, height=h)
+    return depth, dmin, dmax, image, kw
+
+
+def _check_warp(out_k, gap_k, out_p, gap_p, kinds, h):
+    """Gap masks bit-equal; colours within 1e-5 on every image but noise,
+    where under 0.1% of pixels may differ by more."""
+    assert torch.equal(gap_k, gap_p)
+    err = (out_k.float() - out_p.float()).abs().amax(-1)
+    for k, kind in enumerate(kinds):
+        e = err[k * h:(k + 1) * h]
+        if kind == "noise":
+            assert float((e > 1e-5).float().mean()) < 0.001
+        else:
+            assert float(e.max()) <= 1e-5
+
+
+@pytest.mark.parametrize("exponent", [2.0, 1.7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("w,div_px,sep_px", [(1920, 86.4, 0.0), (300, -13.5, 3.0),
+                                             (64, 3.0, 0.0), (7, -2.0, 0.5)])
+def test_warp_fused_entry_matches_plain(dev, w, div_px, sep_px, channels, dtype, exponent):
+    """The fused entry (nd and offsets formed in the kernel) against its
+    plain composition on the card, on fixture, noise and flat images."""
+    kinds = ("fixture", "noise", "flat")
+    depth, dmin, dmax, image, kw = _warp_fused_case(dev, kinds, 9, w, div_px, sep_px,
+                                                    exponent, dtype, channels)
+    before = warp_kernel.LAUNCHES
+    out_k, gap_k = warp_kernel.warp_rows_fused(depth, dmin, dmax, image, **kw)
+    torch.cuda.synchronize()
+    assert warp_kernel.LAUNCHES == before + 1
+    out_p, gap_p = warp_kernel.warp_rows_fused_plain(depth, dmin, dmax, image, **kw)
+    _check_warp(out_k, gap_k, out_p, gap_p, kinds, 9)
+
+
+@pytest.mark.parametrize("w,div_px", [(1920, 86.4), (300, -13.5), (64, 3.0), (7, -2.0)])
+def test_warp_rows_entry_other_widths(dev, w, div_px):
+    """The entry taking offsets and nd against warp_rows_plain at the same
+    widths, on the nd and offsets the fused entry's composition forms."""
+    kinds = ("fixture", "noise", "flat")
+    depth, dmin, dmax, image, kw = _warp_fused_case(dev, kinds, 9, w, div_px, 1.0, 2.0,
+                                                    torch.float32, 3)
+    nd = depth_ops.normalize_between(depth.reshape(3, 9, w), dmin[:, None, None],
+                                     dmax[:, None, None])
+    off = depth_ops.pixel_offsets(nd, div_px, 1.0, 2.0, 0.5, prenormalized=True)
+    nd, off = nd.reshape(-1, w).contiguous(), off.reshape(-1, w).contiguous()
+    rkw = dict(gradient_threshold=1.5, max_stretch=8, max_disp=kw["max_disp"])
+    out_k, gap_k = warp_kernel.warp_rows(off, nd, image, **rkw)
+    out_p, gap_p = warp_kernel.warp_rows_plain(off, nd, image, **rkw)
+    _check_warp(out_k, gap_k, out_p, gap_p, kinds, 9)
+
+
+def test_warp_entries_reject_rows_over_shared_memory(dev):
+    w = warp_kernel.MAX_WIDTH + 1
+    depth = torch.zeros(2, w, device=dev)
+    image = torch.zeros(2, w, 3, device=dev)
+    lim = torch.zeros(2, device=dev)
+    before = warp_kernel.LAUNCHES
+    with pytest.raises(ValueError, match=str(warp_kernel.MAX_WIDTH)):
+        warp_kernel.warp_rows(depth, depth, image, gradient_threshold=1.5, max_stretch=8,
+                              max_disp=6)
+    with pytest.raises(ValueError, match=str(warp_kernel.MAX_WIDTH)):
+        warp_kernel.warp_rows_fused(depth, lim[:1], lim[:1], image, divergence_px=3.0,
+                                    separation_px=0.0, exponent=2.0, convergence_point=0.5,
+                                    gradient_threshold=1.5, max_stretch=8, max_disp=6,
+                                    height=2)
+    assert warp_kernel.LAUNCHES == before
+    # the widest row that fits runs
+    w = warp_kernel.MAX_WIDTH
+    depth = torch.rand(2, w, device=dev) * 255.0
+    image = torch.rand(2, w, 3, device=dev)
+    dmin, dmax = torch.aminmax(depth.reshape(1, -1), dim=-1)
+    kw = dict(divergence_px=20.0, separation_px=0.0, exponent=2.0, convergence_point=0.5,
+              gradient_threshold=1.5, max_stretch=8, max_disp=9, height=2)
+    out_k, gap_k = warp_kernel.warp_rows_fused(depth, dmin, dmax, image, **kw)
+    out_p, gap_p = warp_kernel.warp_rows_fused_plain(depth, dmin, dmax, image, **kw)
+    _check_warp(out_k, gap_k, out_p, gap_p, ("noise",), 2)
+
+
+@pytest.mark.parametrize("falloff", [2.0, 1.7])
+@pytest.mark.parametrize("w", [1920, 300, 64, 7])
+def test_edge_weights_fused_matches_plain(dev, w, falloff):
+    """The fused entry (Sobel, masks, distances and weights in the kernel)
+    bit-equal to its plain composition on the card, on images with edges,
+    with noise, flat, and with no Sobel-x edge at all."""
+    depth = torch.from_numpy(_eye_depth(("fixture", "noise", "flat", "ramp"), 9, w)).to(dev)
+    kw = dict(edge_threshold=20.0, mask_radius=20, falloff=falloff, height=9)
+    before = distance.LAUNCHES
+    kl, kr = distance.edge_weights_fused(depth, **kw)
+    torch.cuda.synchronize()
+    assert distance.LAUNCHES == before + 1
+    pl, pr = distance.edge_weights_plain(depth, **kw)
+    assert torch.equal(kl, pl) and torch.equal(kr, pr)
+    assert float(pl[18:].abs().max()) == 0.0  # no edge in the flat and ramp images
+
+
+@pytest.mark.parametrize("w", [1920, 300, 64, 33, 7])
+def test_distance_kernel_words(dev, w):
+    """The mask entry against its plain version: rows with no edge, edges
+    only in the first or the last word, one edge per row, and dense rows."""
+    rng = np.random.default_rng(w)
+    ml = rng.random((12, w)) < 0.05
+    mr = rng.random((12, w)) < 0.3
+    ml[0] = False
+    mr[0] = False
+    ml[1], mr[1] = False, False
+    ml[1, 0], mr[1, w - 1] = True, True
+    ml[2], mr[2] = False, False
+    ml[2, : min(w, 32)] = rng.random(min(w, 32)) < 0.2
+    mr[2, max(0, w - 32):] = rng.random(min(w, 32)) < 0.2
+    ml[3], mr[3] = False, False
+    ml[3, w // 2] = mr[3, w // 3] = True
+    ml, mr = torch.from_numpy(ml).to(dev), torch.from_numpy(mr).to(dev)
+    kl, kr = distance.edge_distances(ml, mr)
+    pl, pr = distance.edge_distances_plain(ml, mr)
+    assert torch.equal(kl, pl) and torch.equal(kr, pr)
+
+
+def test_distance_entries_reject_rows_over_shared_memory(dev):
+    w = distance.MAX_WIDTH + 32
+    m = torch.zeros(1, w, dtype=torch.bool, device=dev)
+    before = distance.LAUNCHES
+    with pytest.raises(ValueError, match=str(distance.MAX_WIDTH)):
+        distance.edge_distances(m, m)
+    with pytest.raises(ValueError, match=str(distance.MAX_WIDTH)):
+        distance.edge_weights_fused(torch.zeros(1, w, device=dev), edge_threshold=20.0,
+                                    mask_radius=20, falloff=2.0, height=1)
+    assert distance.LAUNCHES == before
+    # the widest row that fits runs
+    w = distance.MAX_WIDTH
+    depth = torch.rand(3, w, device=dev) * 255.0
+    kw = dict(edge_threshold=20.0, mask_radius=20, falloff=2.0, height=3)
+    kl, kr = distance.edge_weights_fused(depth, **kw)
+    pl, pr = distance.edge_weights_plain(depth, **kw)
+    assert torch.equal(kl, pl) and torch.equal(kr, pr)
+
+
+def test_blur_and_outputs_card_bit_equal_to_cpu(dev):
+    """With the depth blur on, the blurred depth, the pipeline's depth
+    outputs and its masks are bit-equal between card and CPU: every
+    division by a scalar divides truly on both (device.true_divide), and
+    the fused kernels divide in IEEE arithmetic."""
+    imgs, depths = fixtures.batch_fixture(2, 270, 480)
+    d255 = torch.from_numpy(depths * 255.0)
+    kw = dict(blur_strength=20, edge_threshold=20, blur_mask_width=20, falloff_exponent=2.0,
+              vert_smooth_px=6)
+    for g, c in zip(blur_ops.directional_motion_blur(d255.to(dev), **kw),
+                    blur_ops.directional_motion_blur(d255, **kw)):
+        assert torch.equal(g.cpu(), c)
+    for fill in ("gpu_warp", "polylines_sharp", "naive"):
+        cfg = StereoConfig(fill_technique=fill, modes=("left-right", "top-bottom"))
+        gpu = stereo_pipeline(torch.from_numpy(imgs).to(dev), torch.from_numpy(depths).to(dev),
+                              cfg)
+        cpu = stereo_pipeline(torch.from_numpy(imgs), torch.from_numpy(depths), cfg)
+        for k in ("left_depth", "right_depth", "mask"):
+            assert torch.equal(gpu[k].cpu(), cpu[k]), (fill, k)
 
 
 def test_pipeline_on_card_matches_cpu(dev):

@@ -33,7 +33,12 @@ any failure ends the run with a non-zero exit code:
    shapes, [BH, Nq, Nk, D] = [16, 4096, 4096, 40] (level 0, CFG batch 2 x 8
    heads), [16, 1024, 1024, 80] (level 1) and [16, 4096, 8192, 40] (BN 'bi'),
    atol 4e-3 on bf16 outputs compared in float32, and a shape outside
-   `supports` (cross-attention, 77 keys) that takes no launch;
+   `supports` (cross-attention, 77 keys) that takes no launch; and the
+   flash kernel's gradient (its autograd: the kernel forward, a backward
+   that recomputes `reference_bf16`) at the null-text shapes [8, 4096,
+   4096, 40] and [16, 4096, 8192, 40]: the backward is `reference_bf16`'s
+   VJP bit for bit and launches nothing, and d(sum o^2) is within 4e-3 (dq)
+   and 1e-2 (dk, dv) of `reference_bf16`'s own gradient;
 3. the main paths at full size, each with every launch counter set to 0 just
    before and read just after: StereoImageNode().generate on 12 frames of
    1920x1080 with the default config (gpu_warp, depth blur, left-right,
@@ -49,7 +54,15 @@ any failure ends the run with a non-zero exit code:
    one 512x512 fixture frame, on the full-width SD 1.5-inpainting UNet and
    SD VAE in bfloat16 with seeded random weights (flash attention 130:
    13 UNet calls x 10 self-attentions), then one UNet CFG call and the
-   whole warp_inpaint with the attention forced to its plain version;
+   whole warp_inpaint with the attention forced to its plain version; the
+   node in Standard (DDIM) mode with its defaults (20 steps, guidance 3,
+   'uni', deblur off, null-text on) on the same frame, on the full-width SD
+   1.5 UNet and SD VAE in bfloat16 with seeded random weights, then a short
+   second call ('bi', deblur on, 5 steps, no null-text): flash launches
+   10 per UNet forward plus 10 per stereo-active CFG call, the UNet calls
+   counted around `unet_apply` (the backward launches none); outputs
+   finite in [0, 1]; and one null-text gradient of u at full width through
+   the kernel against the plain attention's (relative L2 <= 0.05);
 4. card vs CPU: the division by a scalar each way (the share of values
    that differ from the CPU's; `device.true_divide` must give the CPU's
    bits) and pow at a few exponents; the port's stereo_pipeline on 2
@@ -60,7 +73,9 @@ any failure ends the run with a non-zero exit code:
    against the twin on the card at 1080p B=12, sharp to that bound, soft to
    a wider one (see `check_routes_1080p`);
    warp_inpaint at the TINY UNet (9- and 4-channel) and VAE configs in
-   float32 with the same injected noise on the card and on the CPU;
+   float32 with the same injected noise on the card and on the CPU; and
+   text2stereo at the TINY configs (4 steps, null-text with 2 inner steps,
+   deblur on, the same injected noise), left and right within 1e-3;
 5. times with CUDA events (warm-up, then >= 10 iterations, fewer for the
    slowest plain versions): each kernel and its plain version at the main
    path's shapes beside the bound (and torch.gather beside the gather; the
@@ -74,7 +89,13 @@ any failure ends the run with a non-zero exit code:
    by part; the flash kernel,
    its plain version and `scaled_dot_product_attention` (a yardstick the
    port never calls) at the three shapes, the bf16 UNet CFG call, VAE
-   encode and decode, and warp_inpaint per frame with its idle share; for
+   encode and decode, and warp_inpaint per frame with its idle share; the
+   flash backward (its recompute) at [8, 4096, 4096, 40] beside SDPA's
+   backward; the Standard frame at the node's defaults part by part (VAE
+   encode and round trip, DDIM inversion, null-text with its inner
+   iterations and ms per iteration, the denoising loop's CFG calls before
+   and after the stereo start, the decode), its peak device memory and
+   its idle share (each part's unit profiled, weighted by time); for
    the kernels redesigned after their port (all six) their registers,
    spills and shared memory from `-Xptxas -v`, for the gather of a colour plane its
    bound, and for the polylines kernels their recounted operations beside
@@ -132,6 +153,16 @@ SD_SIZE, SD_SEED = 512, 1337
 # the 21 PLMS timesteps; each UNet call runs 10 self-attentions the kernel
 # takes (5 at 4096 tokens, 5 at 1024).
 SD_UNET_CALLS, SD_FLASH_PER_CALL = 13, 10
+# Gradient shapes of the null-text backward: level 0 of one UNet call on one
+# latent (8 heads), and the BN 'bi' pair shape.
+FLASH_GRAD_SHAPES = ((8, 4096, 4096, 40), (16, 4096, 8192, 40))
+# The node's Standard-mode defaults (20 DDIM steps, guidance 3, 'uni', deblur
+# off, null-text on with 10 inner steps), and the short second call.
+STD_DEFAULTS = dict(pipeline_mode="Standard (DDIM)", scale_factor=5.0, direction="uni",
+                    deblur=False, guidance_scale=3.0, num_inference_steps=20,
+                    null_text_optimization=True, seed=SD_SEED)
+STD_SHORT = dict(STD_DEFAULTS, direction="bi", deblur=True, num_inference_steps=5,
+                 null_text_optimization=False)
 
 
 def log(msg: str) -> None:
@@ -310,12 +341,15 @@ def phase_kernels(dev, n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
     n_ss = check_polylines_ss(image * 255.0, {"fixture": fixture_d, "noise": noise_d})
     del image, fixture_d, noise_d
     flash_err = check_flash(dev)
+    grad_errs = check_flash_grad(dev)
     log(f"phase 2 ok: warp, distance, gather ({n_gather} cases), polylines "
         f"({n_poly} cases), supersampled polylines ({n_ss} cases) and flash "
-        f"attention ({len(FLASH_SHAPES)} shapes) kernels agree with their plain versions")
+        f"attention ({len(FLASH_SHAPES)} shapes; its gradient at {len(FLASH_GRAD_SHAPES)}) "
+        "kernels agree with their plain versions")
     return {"warp_max_abs_err": warp_err, "distance_max_abs_err": 0.0,
             "gather_max_abs_err": 0.0, "polylines_max_abs_err": 0.0,
-            "polylines_ss_max_abs_err": 0.0, "flash_max_abs_err": flash_err}
+            "polylines_ss_max_abs_err": 0.0, "flash_max_abs_err": flash_err,
+            "flash_grad_max_abs_err": grad_errs}
 
 
 def check_warp(image, cases) -> float:
@@ -407,6 +441,64 @@ def check_flash(dev) -> float:
         raise AssertionError("cross-attention (77 keys) took the flash kernel")
     log("  flash: cross-attention [2, 8, 4096 x 77, 40] is outside supports, no launch")
     return errs[0]
+
+
+def flash_grads(fn, q, k, v, scale: float):
+    """Gradients of sum(o^2) (o in float32) w.r.t. q, k and v through `fn`,
+    as the JAX package's kernel test takes them."""
+    import torch
+    qkv = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    loss = (fn(*qkv, scale).float() ** 2).sum()
+    return torch.autograd.grad(loss, qkv)
+
+
+def check_flash_grad(dev):
+    """The gradient through the flash kernel's autograd (forward: the
+    kernel; backward: the recompute of `reference_bf16`) at the null-text
+    backward's shapes. With one random cotangent the backward must be
+    `reference_bf16`'s own VJP bit for bit, and launch nothing. The gradient
+    of sum(o^2) against `reference_bf16`'s own gradient of it: dq within
+    atol 4e-3, the JAX package's check of its kernel's VJP
+    (tests/test_flash_attention.py differentiates w.r.t. q); dk and dv
+    within 1e-2. The two forwards differ (f32 logits in the kernel, bf16 in
+    `reference_bf16`), so the cotangents 2o differ too; dk and dv sum that
+    difference over every query (measured 6e-3 on the CPU at 1024 keys, 2e-3
+    at 4096). Returns the max |err| per shape."""
+    import torch
+    from comfystereo_tpu_torch.kernels import flash_attention as fa
+    errs = []
+    for bh, nq, nk, d in FLASH_GRAD_SHAPES:
+        q, k, v = flash_inputs(dev, bh, nq, nk, d, seed=2)
+        scale = d ** -0.5
+        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        g = torch.randn((bh, nq, d), device=dev).to(torch.bfloat16)
+        before = fa.LAUNCHES
+        out = fa.flash_attention(*qkv, scale)
+        vjp = torch.autograd.grad(out, qkv, g)
+        got = flash_grads(fa.flash_attention, q, k, v, scale)
+        sync()
+        if fa.LAUNCHES != before + 2:
+            raise AssertionError(f"two flash fwd+bwd launched {fa.LAUNCHES - before} kernels, "
+                                 "expected 2 (the forwards)")
+        vjp_ref = torch.autograd.grad(fa.reference_bf16(*qkv, scale), qkv, g)
+        if not all(torch.equal(a, b) for a, b in zip(vjp, vjp_ref)):
+            raise AssertionError(f"flash backward at {(bh, nq, nk, d)} is not reference_bf16's "
+                                 "VJP")
+        want = flash_grads(fa.reference_bf16, q, k, v, scale)
+        dq, dk, dv = (float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+        mags = [float(w.float().abs().max()) for w in want]
+        if not all(bool(torch.isfinite(a).all()) for a in got) or dq > 4e-3 or \
+                max(dk, dv) > 1e-2:
+            raise AssertionError(f"flash gradient vs reference_bf16's at {(bh, nq, nk, d)}: "
+                                 f"max |err| dq {dq} (bound 4e-3), dk {dk}, dv {dv} (1e-2)")
+        errs.append(max(dq, dk, dv))
+        log(f"  flash gradient {(bh, nq, nk, d)}: backward == reference_bf16's VJP bit for "
+            f"bit, no launch in it; d(sum o^2) against reference_bf16's max |err| dq {dq:.3g}, "
+            f"dk {dk:.3g}, dv {dv:.3g} (max |dq|, |dk|, |dv| "
+            f"{', '.join(f'{m:.3g}' for m in mags)})")
+        del q, k, v, qkv, out, vjp, vjp_ref, got, want
+        torch.cuda.empty_cache()
+    return errs
 
 
 def gather_inputs(dev, n: int, h: int, w: int, seed: int = 0):
@@ -1122,6 +1214,221 @@ def phase_diffusion(dev):
             "lat": lat, "ctx": ctx, "t": t_first}
 
 
+# --- StereoDiffusion Standard path --------------------------------------------
+
+class UNetCalls:
+    """Counts a bundle's UNet calls while it is in use: all forwards, the
+    forwards whose context needs a gradient (null-text inner iterations),
+    and the stereo-active CFG calls of the denoising loop; with `timed`, the
+    CUDA-event time of each denoising call, plain and stereo-active apart."""
+
+    def __init__(self, model, timed: bool = False):
+        self.model, self.apply, self.timed = model, model.unet_apply, timed
+        self.forward = self.grad = self.stereo = self.plain_cfg = 0
+        self.events = {"plain": [], "stereo": []}
+
+    def __enter__(self):
+        import torch
+
+        def counted(latents, t, context, mode=None, stereo_active=False):
+            self.forward += 1
+            self.grad += bool(context.requires_grad)
+            kind = None
+            if mode is not None and mode.stereo:
+                kind = "stereo" if stereo_active else "plain"
+                self.stereo += kind == "stereo"
+                self.plain_cfg += kind == "plain"
+            if not (self.timed and kind):
+                return self.apply(latents, t, context, mode=mode, stereo_active=stereo_active)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = self.apply(latents, t, context, mode=mode, stereo_active=stereo_active)
+            ev[1].record()
+            self.events[kind].append(ev)
+            return out
+
+        self.model.unet_apply = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.model.unet_apply = self.apply
+
+    def ms(self, kind: str):
+        """(calls, total ms) of the timed denoising calls of one kind."""
+        sync()
+        evs = self.events[kind]
+        return len(evs), sum(a.elapsed_time(b) for a, b in evs)
+
+
+def std_expected_calls(steps: int, null_text: bool, inner: int):
+    """(UNet forwards, stereo-active CFG calls) of one Standard frame: the
+    inversion loop (steps), per timestep with null-text the conditional eps,
+    the inner iterations and the advance (2 per step + inner), the denoising
+    loop (steps), of which those from 20% of the steps on are stereo."""
+    start = max(int(steps * 0.2), 1)
+    return steps + (2 * steps + inner if null_text else 0) + steps, steps - start
+
+
+def phase_standard(dev):
+    """The StereoDiffusion node in Standard (DDIM) mode with its defaults on
+    one 512x512 fixture frame, on the full-width SD 1.5 UNet + SD VAE in bf16
+    with seeded random weights; then a short second call ('bi', deblur on, 5
+    steps, no null-text). Flash launches must be 10 per UNet forward plus 10
+    per stereo-active CFG call (its self-attentions run as two pairs); the
+    backward launches none. Then one null-text gradient of u at full width
+    through the kernel against the same gradient with the attention forced
+    to its plain version."""
+    import torch
+    from comfystereo_tpu_torch.diffusion import SD15_UNET_CONFIG, SD_VAE_CONFIG, build_sd_model
+    from comfystereo_tpu_torch.nodes.stereodiffusion import StereoDiffusionNode
+
+    t0 = time.perf_counter()
+    model = build_sd_model(SD15_UNET_CONFIG, SD_VAE_CONFIG, dtype=torch.bfloat16, seed=0,
+                           device=dev)
+    sync()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for m in (model.unet, model.vae) for p in m.parameters())
+    img, dep = sd_fixture(SD_SIZE)
+    s = SD_SIZE
+    runs = {}
+    for label, kw in (("defaults", STD_DEFAULTS), ("short", STD_SHORT)):
+        seen = []
+        reset_launches()
+        t0 = time.perf_counter()
+        with nan_guard_spy(seen), UNetCalls(model) as calls:
+            pair, left, right = StereoDiffusionNode().generate_stereo(img, dep, model=model,
+                                                                      device=dev, **kw)
+        sec = time.perf_counter() - t0
+        launches = read_launches()
+        steps, nt = kw["num_inference_steps"], kw["null_text_optimization"]
+        fwd, stereo = std_expected_calls(steps, nt, calls.grad)
+        if (calls.forward, calls.stereo) != (fwd, stereo) or (not nt and calls.grad) or \
+                calls.grad > 10 * steps:
+            raise AssertionError(f"Standard {label}: UNet calls {calls.forward} (stereo "
+                                 f"{calls.stereo}, inner {calls.grad}), expected {fwd} "
+                                 f"({stereo})")
+        want = {k: 0 for k in launches}
+        want["flash_attention"] = SD_FLASH_PER_CALL * (calls.forward + calls.stereo)
+        if launches != want:
+            raise AssertionError(f"Standard {label} launches {launches}, expected {want}")
+        if (tuple(pair.shape), tuple(left.shape), tuple(right.shape)) != (
+                (1, s, 2 * s, 3), (1, s, s, 3), (1, s, s, 3)):
+            raise AssertionError(f"Standard node output shapes {tuple(pair.shape)}")
+        for t in (pair, left, right):
+            if not bool(torch.isfinite(t).all()) or float(t.min()) < 0 or float(t.max()) > 1:
+                raise AssertionError("Standard node outputs not finite or outside [0, 1]")
+        if seen != [0]:
+            raise AssertionError(f"the NaN guard scrubbed {seen} non-finite values")
+        lr_diff = float((left - right).abs().mean())
+        if lr_diff == 0.0:
+            raise AssertionError("Standard node: the right eye equals the left")
+        runs[label] = {"seconds": sec, "unet_forwards": calls.forward,
+                       "stereo_cfg_calls": calls.stereo, "null_text_inner": calls.grad,
+                       "flash_launches": launches["flash_attention"]}
+        log(f"phase 3 StereoDiffusion Standard ({label}: {steps} steps, '{kw['direction']}', "
+            f"deblur {kw['deblur']}, null-text {nt}): node on 1 frame {s}x{s} in {sec:.2f} s "
+            f"(first call), {calls.forward} UNet forwards ({calls.grad} null-text inner "
+            f"iterations with a backward), {calls.stereo} stereo-active CFG calls, launches "
+            f"{launches} = {SD_FLASH_PER_CALL} x ({calls.forward} + {calls.stereo}); mean "
+            f"|left - right| "
+            f"{lr_diff:.4f}, mean |left - input| "
+            f"{float((left - torch.from_numpy(img)).abs().mean()):.4f}")
+    log(f"  Standard model: {n_params / 1e6:.1f}M parameters (bf16), built in {build_s:.1f} s")
+    grad = check_null_text_grad(model)
+    log("phase 3 ok: StereoDiffusion Standard node through the flash kernel, forward and "
+        "backward")
+    return {"model": model, "runs": runs, "grad": grad,
+            "launches": sum(r["flash_launches"] for r in runs.values())}
+
+
+def null_text_grad(model, lat, prev, t: int, sched, guidance: float = 3.0):
+    """The null-text loss's gradient w.r.t. the unconditional embedding at
+    one timestep, as `inversion.null_text_optimize_step` takes it."""
+    import torch
+    from comfystereo_tpu_torch.diffusion import schedulers
+    cond = model.text_encode("")
+    with torch.no_grad():
+        eps_c = model.unet_apply(lat, t, cond)
+    u = cond.detach().clone().requires_grad_(True)
+    eps_u = model.unet_apply(lat, t, u)
+    eps = eps_u + guidance * (eps_c - eps_u)
+    loss = torch.mean((schedulers.ddim_step(sched, eps, t, lat) - prev) ** 2)
+    return torch.autograd.grad(loss, u)[0]
+
+
+def check_null_text_grad(model):
+    """One null-text gradient of u at full width (64x64 latent, the first
+    timestep of 20): through the flash kernel's autograd, against the same
+    gradient with the attention forced to its plain version (`reference`,
+    autograd through f32 logits), relative L2 at most 0.05; and against the
+    gradient with the kernel's output cut from the graph (what a forward
+    without autograd gave): the self-attentions must carry gradient."""
+    import torch
+    from comfystereo_tpu_torch.diffusion import schedulers
+    from comfystereo_tpu_torch.kernels import flash_attention as fa
+    dev = model.device
+    sched = schedulers.make_ddim(20)
+    t = int(sched.timesteps[0])
+    gen = torch.Generator().manual_seed(1)
+    ls = SD_SIZE // 2 ** (len(model.vae.cfg.block_out_channels) - 1)
+    lat = torch.randn((1, model.latent_channels, ls, ls), generator=gen).to(dev)
+    prev = lat + 0.05 * torch.randn(lat.shape, generator=gen).to(dev)
+    before = fa.LAUNCHES
+    g_k = null_text_grad(model, lat, prev, t, sched)
+    sync()
+    if fa.LAUNCHES != before + 2 * SD_FLASH_PER_CALL:
+        raise AssertionError(f"null-text gradient launched {fa.LAUNCHES - before} flash "
+                             f"kernels, expected {2 * SD_FLASH_PER_CALL} (two forwards)")
+    kernel = fa.flash_attention
+    with attention_as(fa.reference):
+        g_p = null_text_grad(model, lat, prev, t, sched)
+    with attention_as(lambda q, k, v, scale: kernel(q, k, v, scale).detach()):
+        g_cut = null_text_grad(model, lat, prev, t, sched)
+    sync()
+    if not all(bool(torch.isfinite(g).all()) for g in (g_k, g_p, g_cut)):
+        raise AssertionError("null-text gradient not finite")
+    rel, rel_cut = rel_l2(g_k, g_p), rel_l2(g_cut, g_k)
+    log(f"  null-text gradient of u {tuple(g_k.shape)} at t={t}, full width: relative L2 "
+        f"kernel route vs plain route {rel:.4g} (bound 0.05); without the self-attentions' "
+        f"gradient it would be {rel_cut:.4g} off; |g| rms "
+        f"{float(g_k.float().pow(2).mean().sqrt()):.3g}")
+    if rel > 0.05:
+        raise AssertionError(f"null-text gradient kernel vs plain: relative L2 {rel} > 0.05")
+    if rel_cut <= rel:
+        raise AssertionError("the self-attentions carry no gradient")
+    return {"rel_l2_kernel_vs_plain": rel, "rel_l2_without_self_attention": rel_cut}
+
+
+def phase_standard_card_vs_cpu(dev, size: int = 64):
+    """text2stereo at the TINY configs in float32 (TF32 off) with the same
+    seeded weights and injected deblur noise on the card and on the CPU:
+    4 steps, null-text on with 2 inner steps, deblur on. Left and right
+    within 1e-3, as warp_inpaint is held."""
+    import torch
+    from comfystereo_tpu_torch.diffusion import (TINY_SD_UNET_CONFIG, TINY_SD_VAE_CONFIG,
+                                                 build_sd_model, sd_pipeline)
+    img, dep = (torch.from_numpy(a) for a in sd_fixture(size))
+    x = img.permute(0, 3, 1, 2) * 2.0 - 1.0
+    f = 2 ** (len(TINY_SD_VAE_CONFIG.block_out_channels) - 1)
+    noise = torch.randn((1, TINY_SD_VAE_CONFIG.latent_channels, size // f, size // f),
+                        generator=torch.Generator().manual_seed(3))
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        m = build_sd_model(TINY_SD_UNET_CONFIG, TINY_SD_VAE_CONFIG, seed=0, device=d)
+        outs.append(sd_pipeline.text2stereo(
+            m, x.to(d), dep.to(d), "a cat", scale_factor=8.0, direction="uni", deblur=True,
+            guidance_scale=3.0, num_inference_steps=4, null_text_optimization=True,
+            num_inner_steps=2, noise=noise.to(d)))
+    errs = [float((a.cpu() - b).abs().max()) for a, b in zip(outs[0], outs[1])]
+    if max(errs) > 1e-3:
+        raise AssertionError(f"text2stereo card vs CPU: max |err| left {errs[0]}, right "
+                             f"{errs[1]} > 1e-3")
+    log(f"phase 4 ok: text2stereo card vs CPU at the TINY configs, {size}x{size}, 4 steps, "
+        f"null-text (2 inner steps), deblur: left max |err| {errs[0]:.3g}, right "
+        f"{errs[1]:.3g}")
+    return errs
+
+
 def phase_diffusion_card_vs_cpu(dev, size: int = 64):
     """warp_inpaint at the TINY configs in float32 (TF32 off) with the same
     seeded weights and the same injected noise on the card and on the CPU:
@@ -1247,6 +1554,157 @@ def diffusion_times(dev, sd, launches: int, err: float, smi: str, name: str):
              "flash_sdpa_ms": [r[2] for r in rows], "flash_bound_ms": [r[3] for r in rows]}
     times.update(idle_share("warp_inpaint", run, frame_ms, smi, iters=1))
     return entry, times
+
+
+def flash_backward_times(dev, smi: str):
+    """The flash kernel's backward (the recompute of `reference_bf16` and its
+    autograd) at [8, 4096, 4096, 40], beside the backward of
+    scaled_dot_product_attention on the same inputs (a yardstick the port
+    never calls), both from a retained graph with one cotangent."""
+    import torch
+    import torch.nn.functional as F
+    from comfystereo_tpu_torch.kernels import flash_attention as fa
+    bh, nq, nk, d = FLASH_GRAD_SHAPES[0]
+    q, k, v = (t.requires_grad_(True) for t in flash_inputs(dev, bh, nq, nk, d, seed=3))
+    g = torch.randn((bh, nq, d), device=dev).to(torch.bfloat16)
+    out = fa.flash_attention(q, k, v, d ** -0.5)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True),
+                     iters=5)
+    q4, k4, v4 = (t.detach().reshape(1, bh, -1, d).requires_grad_(True) for t in (q, k, v))
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=d ** -0.5)
+    g4 = g.reshape(1, bh, nq, d)
+    lib_ms = time_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), g4, retain_graph=True),
+                     iters=10)
+    log(f"  flash_attention backward {(bh, nq, nk, d)}: {bwd_ms:.4f} ms (recompute of "
+        f"reference_bf16, no kernel), scaled_dot_product_attention backward {lib_ms:.4f} ms "
+        f"[{smi}]")
+    del q, k, v, out, q4, k4, v4, out4
+    torch.cuda.empty_cache()
+    return bwd_ms, lib_ms
+
+
+def standard_times(dev, std, smi: str):
+    """One Standard frame at the node's defaults, part by part on the host
+    clock with a synchronise at each boundary: VAE encode, the round trip's
+    decode, the DDIM inversion loop, the null-text loop (its inner
+    iterations, and one fwd+bwd iteration timed alone), the denoising loop
+    (each CFG call timed with CUDA events, plain and stereo-active apart),
+    the decode; peak device memory; the device idle share of each part's
+    unit (one inversion UNet call, one null-text timestep, one plain and
+    one stereo CFG call, the decode), weighted by the parts' times."""
+    import numpy as np
+    import torch
+    from comfystereo_tpu_torch.diffusion import inversion, schedulers, sd_pipeline
+    model, s = std["model"], SD_SIZE
+    img, dep = (torch.from_numpy(a).to(dev) for a in sd_fixture(s))
+    x = img.permute(0, 3, 1, 2) * 2.0 - 1.0
+    steps, g = STD_DEFAULTS["num_inference_steps"], STD_DEFAULTS["guidance_scale"]
+    sched = schedulers.make_ddim(steps)
+    cond = uncond = model.text_encode("")
+    parts = {}
+
+    def part(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        parts[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        latent = part("vae_encode_ms", lambda: inversion.image_to_latent(model, x))
+        part("vae_roundtrip_decode_ms", lambda: inversion.latent_to_image(model, latent))
+        traj = part("ddim_inversion_ms",
+                    lambda: inversion.ddim_invert_loop(model, sched, latent, cond))
+
+    def null_text():
+        u, cur, us = uncond, traj[-1], []
+        for i in range(steps):
+            lr = float(np.float32(1e-2 * (1.0 - i / 100.0)))
+            stop = float(np.float32(1e-5 + i * 2e-5))
+            u, cur = inversion.null_text_optimize_step(
+                model, sched, cur, traj[steps - i - 1], int(sched.timesteps[i]), u, cond, g,
+                10, lr, stop)
+            us.append(u)
+        return torch.stack(us)
+
+    with UNetCalls(model) as calls:
+        unconds = part("null_text_ms", null_text)
+    inner = calls.grad
+    inv = inversion.InversionResult(traj, unconds, None)
+    with torch.no_grad(), UNetCalls(model, timed=True) as calls:
+        latents = part("denoise_ms", lambda: sd_pipeline._denoise_loop(
+            model, sched, inv, cond, dep, STD_DEFAULTS["scale_factor"],
+            STD_DEFAULTS["direction"], False, g, steps, SD_SEED, True, None))
+        n_plain, plain_ms = calls.ms("plain")
+        n_stereo, stereo_ms = calls.ms("stereo")
+        out = part("decode_ms", lambda: sd_pipeline._to_01(
+            inversion.latent_to_image(model, latents)))
+    peak = torch.cuda.max_memory_allocated()
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("Standard frame (timed parts) not finite")
+    frame_ms = sum(parts.values())
+    lat, prev = traj[-1], traj[-2]
+    t0 = int(sched.timesteps[0])
+    fwdbwd_ms = time_ms(lambda: null_text_grad(model, lat, prev, t0, sched), iters=3,
+                        warmup=1)
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: model.unet_apply(lat, t0, cond), iters=5)
+    per_inner = (parts["null_text_ms"] - 2 * steps * fwd_ms) / max(inner, 1)
+    log(f"  StereoDiffusion Standard {s}x{s} bf16, node defaults [{smi}]: {frame_ms:.1f} "
+        f"ms/frame = VAE encode {parts['vae_encode_ms']:.1f} + round-trip decode "
+        f"{parts['vae_roundtrip_decode_ms']:.1f} + DDIM inversion ({steps} UNet calls) "
+        f"{parts['ddim_inversion_ms']:.1f} + null-text {parts['null_text_ms']:.1f} ({inner} "
+        f"inner iterations, {2 * steps} more forwards) + denoising {parts['denoise_ms']:.1f} "
+        f"({n_plain} CFG calls before the stereo start, {plain_ms:.1f} ms, "
+        f"{plain_ms / max(n_plain, 1):.2f} ms each; {n_stereo} stereo-active, "
+        f"{stereo_ms:.1f} ms, {stereo_ms / max(n_stereo, 1):.2f} ms each) + decode "
+        f"{parts['decode_ms']:.1f}; one UNet forward (batch 1) {fwd_ms:.2f} ms; null-text "
+        f"{per_inner:.2f} ms per inner iteration (fwd+bwd+Adam, from the loop's time less "
+        f"its {2 * steps} plain forwards), one gradient alone (2 forwards, 1 backward) "
+        f"{fwdbwd_ms:.2f} ms; peak device memory {peak / 2 ** 30:.2f} GiB")
+
+    # Idle shares of one unit of each part, weighted by the parts' times.
+    mode = sd_pipeline.AttentionMode(stereo=True, direction=STD_DEFAULTS["direction"])
+    ctx = torch.cat([uncond] * 2 + [cond] * 2, dim=0)
+    lat4 = torch.cat([lat] * 4, dim=0)
+    t_s = int(sched.timesteps[-1])
+
+    def unit(**kw):
+        with torch.no_grad():
+            return model.unet_apply(lat4, t_s, ctx, mode=mode, **kw)
+
+    def nt_step():
+        return inversion.null_text_optimize_step(model, sched, lat, prev, t0, uncond, cond, g,
+                                                 10, 1e-2, 0.0)
+
+    units = {
+        "ddim_inversion_ms": ("inversion UNet call", lambda: model.unet_apply(lat, t0, cond)),
+        "null_text_ms": ("null-text timestep (10 inner)", nt_step),
+        "denoise_plain": ("CFG call", lambda: unit(stereo_active=False)),
+        "denoise_stereo": ("stereo CFG call", lambda: unit(stereo_active=True)),
+        "decode_ms": ("decode", lambda: inversion.latent_to_image(model, latents)),
+    }
+    weights = dict(parts, denoise_plain=plain_ms, denoise_stereo=stereo_ms)
+    idle, total = {}, 0.0
+    for key, (label, fn) in units.items():
+        with torch.no_grad() if key != "null_text_ms" else contextlib.nullcontext():
+            res = idle_share(f"Standard {label}", fn, 0.0, smi, iters=1)
+        idle[key] = res["idle_share"]
+        if res["idle_share"] is not None:
+            total += res["idle_share"] * weights[key]
+    covered = sum(weights[k] for k in units if idle[k] is not None)
+    frame_idle = total / covered if covered else None
+    log(f"  Standard frame idle share (parts' shares weighted by their times, "
+        f"{covered / frame_ms:.1%} of the frame covered): "
+        f"{'not measured' if frame_idle is None else f'{frame_idle:.4f}'} [{smi}]")
+    return dict(parts, frame_ms=frame_ms, null_text_inner=inner, cfg_plain_calls=n_plain,
+                cfg_plain_ms=plain_ms, cfg_stereo_calls=n_stereo, cfg_stereo_ms=stereo_ms,
+                unet_forward_ms=fwd_ms, null_text_ms_per_inner=per_inner,
+                null_text_grad_ms=fwdbwd_ms,
+                max_memory_allocated=peak, idle_share_parts=idle, idle_share=frame_idle,
+                node_first_call_s=std["runs"]["defaults"]["seconds"])
 
 
 def phase_times(dev, launches, errs, smi: str, name: str,
@@ -1879,13 +2337,23 @@ def main() -> int:
     errs = phase_kernels(dev)
     launches, _ = phase_main_path(dev)
     sd = phase_diffusion(dev)
-    launches["flash_attention"] = sd["launches"]["flash_attention"]
+    std = phase_standard(dev)
+    launches["flash_attention"] = sd["launches"]["flash_attention"] + std["launches"]
     phase_card_vs_cpu(dev)
     phase_diffusion_card_vs_cpu(dev)
+    std_cpu_errs = phase_standard_card_vs_cpu(dev)
     kernels, pipeline = phase_times(dev, launches, errs, smi, name)
     flash, pipeline["stereodiffusion_fast"] = diffusion_times(
-        dev, sd, launches["flash_attention"], errs["flash_max_abs_err"], smi, name)
+        dev, sd, sd["launches"]["flash_attention"], errs["flash_max_abs_err"], smi, name)
+    # launches: the Fast node's and both Standard node calls'.
+    flash["launches"] = launches["flash_attention"]
+    flash["backward"] = "recompute of reference_bf16 (autograd, no kernel)"
+    flash["grad_max_abs_err"] = errs["flash_grad_max_abs_err"]
+    flash["backward_ms"], flash["library_backward_ms"] = flash_backward_times(dev, smi)
     kernels.append(flash)
+    std_times = standard_times(dev, std, smi)
+    pipeline["stereodiffusion_standard"] = dict(
+        std_times, runs=std["runs"], null_text_grad=std["grad"], card_vs_cpu=std_cpu_errs)
     log(f"phase 5 ok: StereoDiffusion times on {name} ({smi})")
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

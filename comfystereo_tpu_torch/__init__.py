@@ -8,7 +8,7 @@ Ported so far: the depth->stereo path through `stereo_pipeline`, the Stereo
 Image node and the video loop, with the directional depth blur and every
 fill technique: the default `gpu_warp` and the CPU-parity fills with the
 exact polylines renderer; and the StereoDiffusion node's Fast (Warp +
-Inpaint) mode on the SD UNet and VAE (`diffusion/`). Its five accelerator
+Inpaint) and Standard (DDIM) modes on the SD UNet and VAE (`diffusion/`). Its five accelerator
 kernels are hand-written CUDA for Hopper (sm_90a) in `csrc/`: the forward
 warp (`kernels/warp_kernel.py`), the row edge-distance transform
 (`kernels/distance.py`), the bounded gather (`kernels/gather.py`), the exact

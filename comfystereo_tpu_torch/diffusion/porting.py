@@ -13,6 +13,10 @@ Port of part of `comfystereo_tpu/diffusion/porting.py`:
   module names split back into diffusers' dotted keys (the key walk of
   `flax_to_torch_state_dict`), with ``linear_1``/``linear_2`` kept literal.
 
+* `toy_state_dicts_from_jax` does the same for the JAX toy model's UNet
+  and VAE trees, renaming flax's auto-named modules to the toy's module
+  lists (`models.py`).
+
 No checkpoint is in the repository yet: safetensors I/O, the LDM key maps
 and w8 weight storage come with the model-loading slice.
 """
@@ -79,6 +83,23 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
         walk(tree, [])
     return out
+
+
+# flax auto-name prefixes of the toy modules -> the port's module lists
+# (`models.py`); the VAE's Sequential layers_<i> are the torch Sequential's i.
+_TOY_NAMES = {"Conv": "convs", "Dense": "dense", "GroupNorm": "norms", "LayerNorm": "norms",
+              "_ResBlock": "res_blocks", "_TransformerBlock": "blocks"}
+
+
+def toy_state_dicts_from_jax(unet_params: Mapping[str, Any], vae_params: Mapping[str, Any]):
+    """The JAX toy model's flax trees (`make_toy_model`'s `unet_params` and
+    `vae_params`, as numpy arrays) -> (UNet, VAE) state dicts of the port's
+    `LatentUNet` and `SimpleVAE` (`state_dict_from_jax`, then the toy's
+    module names)."""
+    def rename(sd):
+        return {".".join(_TOY_NAMES.get(p, p) for p in k.split(".") if p != "layers"): v
+                for k, v in sd.items()}
+    return rename(state_dict_from_jax(unet_params)), rename(state_dict_from_jax(vae_params))
 
 
 def random_init_(module: torch.nn.Module, seed: int) -> None:

@@ -1,17 +1,27 @@
-"""StereoDiffusion's Fast path: warp + inpaint.
+"""StereoDiffusion generation pipelines: Standard (DDIM) and Fast (warp +
+inpaint).
 
-Port of part of `comfystereo_tpu/diffusion/sd_pipeline.py`: backward-warp
-the right eye, detect disocclusions (warped-depth comparison, 3x3 dilation,
-out-of-bounds), prefill the gaps by horizontal border interpolation,
-diffusion-inpaint the masked region with PNDM, and recomposite inside the
-mask only. The JAX package's scanned device program becomes a plain host
-loop over the timestep list; the frames of a batch run together.
+Port of `comfystereo_tpu/diffusion/sd_pipeline.py`. Two paths:
 
-Random draws: one `torch.Generator` per frame, seeded `seed + frame_idx` by
-the node, drawn on the CPU so a seed gives the same noise on every device
-(the values are not `jax.random`'s). `diffusion_inpaint` and `warp_inpaint`
-take the noise as an argument too, so tests can feed the JAX package's.
-`text2stereo` (Standard mode) comes with a later slice.
+1. `text2stereo`, the Standard path: DDIM inversion with optional null-text
+   optimisation (`inversion.py`), then a CFG denoising loop in which every
+   self-attention runs Bilateral-Neighbor attention from 20% of the steps
+   on, the left latent is depth-shifted to seed the right latent at that
+   step (holes optionally refilled with fresh noise, "deblur"), and the
+   shift is re-applied inside its mask every further 20% of the steps.
+2. `warp_inpaint`, the Fast path: backward-warp the right eye, detect
+   disocclusions (warped-depth comparison, 3x3 dilation, out-of-bounds),
+   prefill the gaps by horizontal border interpolation, diffusion-inpaint
+   the masked region with PNDM, and recomposite inside the mask only.
+
+The JAX package's scanned device programs become plain host loops over the
+timestep lists; the frames of a Fast batch run together.
+
+Random draws: `torch.Generator`s on the CPU, so a seed gives the same noise
+on every device (the values are not `jax.random`'s): one per frame, seeded
+`seed + frame_idx` by the node, for the Fast path; one seeded `seed` for the
+Standard path's deblur noise. Each path takes its noise as an argument too
+(`noise=`), so tests can feed the JAX package's draws.
 """
 from __future__ import annotations
 
@@ -24,8 +34,11 @@ import torch.nn.functional as F
 from ..ops import depth as depth_ops
 from ..ops import scan as scan_ops
 from . import schedulers
-from .inversion import image_to_latent, latent_to_image
+from .adapters import detect_model_type
+from .attention import AttentionMode
+from .inversion import image_to_latent, invert, latent_to_image
 from .models import DiffusionModel
+from .stereo_latent import stereo_shift_with_mask
 
 # (init_noise [B, C, h, w], step_noise [n, B, C, h, w] or None)
 Noise = Tuple[torch.Tensor, Optional[torch.Tensor]]
@@ -52,6 +65,81 @@ def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
         return x
     return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False,
                          antialias=True)
+
+
+def text2stereo(model: DiffusionModel, image_nchw: torch.Tensor, depth: torch.Tensor,
+                prompt: str = "", scale_factor: float = 5.0, direction: str = "uni",
+                deblur: bool = True, guidance_scale: float = 7.5,
+                num_inference_steps: int = 50, null_text_optimization: bool = False,
+                num_inner_steps: int = 10, seed: int = 0, use_cfg: bool = True,
+                scheduler: str = "auto",
+                noise: Optional[torch.Tensor] = None) -> StereoResult:
+    """Standard (DDIM-inversion) StereoDiffusion for one frame.
+
+    image_nchw: [1, 3, H, W] in [-1, 1]; depth: [1, H, W] (any scale).
+    scheduler: "auto" picks Euler for SD2-family models (1024-d context)
+    and DDIM otherwise, or pass "ddim" / "euler". Inversion is always DDIM;
+    for Euler the inverted latent is moved to sigma space at loop entry.
+    `noise`: the deblur noise [1, C, h, w] to use instead of the draw from
+    a CPU generator seeded `seed`. Returns [1, H, W, 3] images in [0, 1].
+    """
+    if scheduler == "auto":
+        scheduler = "euler" if detect_model_type(model) == "SD2" else "ddim"
+    sched = (schedulers.make_euler(num_inference_steps) if scheduler == "euler"
+             else schedulers.make_ddim(num_inference_steps))
+    inv = invert(model, image_nchw, prompt, num_ddim_steps=num_inference_steps,
+                 guidance_scale=guidance_scale, num_inner_steps=num_inner_steps,
+                 null_text_optimization=null_text_optimization)
+    cond = model.text_encode(prompt)
+    with torch.no_grad():
+        latents = _denoise_loop(model, sched, inv, cond, depth, scale_factor, direction,
+                                deblur, guidance_scale, num_inference_steps, seed, use_cfg,
+                                noise)
+        images = _nan_guard(_to_01(latent_to_image(model, latents)))
+    return StereoResult(left=images[:1], right=images[1:])
+
+
+def _denoise_loop(model, sched, inv, cond, depth, scale_factor, direction, deblur,
+                  guidance_scale, num_steps, seed, use_cfg, noise):
+    """The Standard path's CFG denoising loop over [left, right] latents."""
+    lh, lw = inv.latents.shape[-2:]
+    depth_lat = resize_bilinear(depth.float()[:, None], lh, lw)[:, 0]
+    shift_every = max(int(num_steps * 0.2), 1)
+    start_step = shift_every
+    mode = AttentionMode(stereo=True, direction=direction, use_cfg=use_cfg)
+
+    latents = torch.cat([inv.latents[-1]] * 2, dim=0)            # [2, C, h, w]
+    if sched.sigmas is not None:
+        # DDIM-inverted latent -> Euler's sigma parameterisation.
+        latents = schedulers.to_sigma_space(sched, latents, int(sched.timesteps[0]))
+    if deblur and noise is None:
+        gen = torch.Generator().manual_seed(int(seed))
+        noise = torch.randn(tuple(latents[:1].shape), generator=gen)
+    if deblur:
+        noise = noise.to(latents.device)
+    n_u = inv.uncond_embeddings.shape[0]
+    mask = None
+    for i in range(num_steps):
+        t = int(sched.timesteps[i])
+        stereo_active = i >= start_step
+        if stereo_active and i % shift_every == 0:
+            left = latents[:1]
+            shifted, hit = stereo_shift_with_mask(left, depth_lat, float(scale_factor))
+            if i == start_step:
+                mask = hit[:, None].float()
+                right = torch.where(mask > 0.5, shifted, noise) if deblur else shifted
+            else:
+                right = torch.where(mask > 0.5, shifted, latents[1:])
+            latents = torch.cat([left, right], dim=0)
+        u = inv.uncond_embeddings[min(i, n_u - 1)]
+        ctx = torch.cat([u.repeat_interleave(2, dim=0), cond.repeat_interleave(2, dim=0)],
+                        dim=0)
+        lat_in = schedulers.scale_model_input(sched, torch.cat([latents] * 2, dim=0), t)
+        eps = model.unet_apply(lat_in, t, ctx, mode=mode, stereo_active=stereo_active)
+        eps_u, eps_c = eps.chunk(2, dim=0)
+        eps = eps_u + guidance_scale * (eps_c - eps_u)
+        latents = schedulers.scheduler_step(sched, eps, t, latents)
+    return latents
 
 
 def backward_warp_right(image_nhwc: torch.Tensor, depth: torch.Tensor,

@@ -22,8 +22,12 @@ TPU kernel's VMEM budget (`_pick_bq`). Callers check `supports` first, as
 `diffusion/attention.py:standard_attention` does; other shapes raise.
 
 `reference_bf16` is the counterpart of `_reference_bf16` (bf16 logits,
-f32 exp and sum): the formulation the JAX package differentiates through
-for the null-text backward.
+f32 exp and sum). The gradient is the JAX package's custom VJP: the
+forward (kernel or `reference`) saves q, k and v only, and the backward, on
+both devices, recomputes `reference_bf16` once and differentiates it
+(`FlashAttentionFn`). There is no backward kernel, as the JAX package has
+none: its VJP runs in XLA, outside any Pallas kernel. The backward launches
+nothing, and `LAUNCHES` counts forward launches only.
 """
 from __future__ import annotations
 
@@ -66,7 +70,7 @@ def reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The plain version: f32 logits from the bf16 products, f32 softmax,
     bf16 weights times v. q [..., Nq, D], k and v [..., Nk, D]."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    m = s.amax(dim=-1, keepdim=True)
+    m = s.amax(dim=-1, keepdim=True).detach()
     e = torch.exp((s - m) * scale)
     a = (e / e.sum(dim=-1, keepdim=True)).to(v.dtype)
     return torch.matmul(a, v)
@@ -75,9 +79,11 @@ def reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def reference_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: float) -> torch.Tensor:
     """bf16-materialised logits, f32 exp and sum: the formulation
-    `standard_attention` uses for bf16 shapes outside `supports`."""
+    `standard_attention` uses for bf16 shapes outside `supports`, and the
+    one the kernel's backward differentiates. The row max is a constant to
+    autograd, as JAX's `stop_gradient` makes it."""
     s = torch.matmul(q, k.transpose(-1, -2))
-    m = s.amax(dim=-1, keepdim=True)
+    m = s.amax(dim=-1, keepdim=True).detach()
     e = torch.exp((s.float() - m.float()) * scale)
     a = (e / e.sum(dim=-1, keepdim=True)).to(v.dtype)
     return torch.matmul(a, v)
@@ -98,12 +104,55 @@ def pad_head_dim(t: torch.Tensor, d: int) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             scale: float) -> torch.Tensor:
+    """The kernel for CUDA tensors, `reference` for CPU tensors."""
+    global LAUNCHES
+    if q.device.type == "cpu":
+        return reference(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    from . import _build
+
+    bh, nq, d = q.shape
+    nk = k.shape[1]
+    dk = tma_head_dim(d)
+    q, k, v = (pad_head_dim(t, dk) for t in (q, k, v))
+    out = torch.empty_like(q)
+    err = _build.library("flash_attention").cs_flash_attention_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, nq, nk, dk,
+        float(scale), _common.stream_ptr(q.device))
+    _build.check(err, "flash_attention kernel launch")
+    LAUNCHES += 1
+    return out if dk == d else out[..., :d].contiguous()
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Forward: `_forward` (the kernel on the card). Backward: one recompute
+    of `reference_bf16` from the saved q, k, v, differentiated by autograd;
+    the JAX package's `_bwd` exactly."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _forward(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            out = reference_bf16(*qkv, ctx.scale)
+            grads = torch.autograd.grad(out, qkv, g)
+        return (*grads, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """Softmax attention, q [BH, Nq, D], k and v [BH, Nk, D] bf16 ->
     [BH, Nq, D] bf16: the CUDA kernel for CUDA tensors, `reference` for CPU
-    tensors. Raises for shapes outside `supports`."""
-    global LAUNCHES
+    tensors, differentiable through `FlashAttentionFn`. Raises for shapes
+    outside `supports`."""
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("flash_attention: expected q, k, v of shape [BH, N, D]")
     bh, nq, d = q.shape
@@ -118,18 +167,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{q.dtype}) is outside `supports`")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v on different devices")
-    if q.device.type == "cpu":
-        return reference(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    from . import _build
-
-    dk = tma_head_dim(d)
-    q, k, v = (pad_head_dim(t, dk) for t in (q, k, v))
-    out = torch.empty_like(q)
-    err = _build.library("flash_attention").cs_flash_attention_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, nq, nk, dk,
-        float(scale), _common.stream_ptr(q.device))
-    _build.check(err, "flash_attention kernel launch")
-    LAUNCHES += 1
-    return out if dk == d else out[..., :d].contiguous()
+    return FlashAttentionFn.apply(q, k, v, scale)

@@ -2,13 +2,15 @@
 
 The public contract (`INPUT_TYPES`, `RETURN_TYPES`, `RETURN_NAMES`,
 `FUNCTION`, `CATEGORY`) is that of `comfystereo_tpu/nodes/stereodiffusion.py`.
-Ported so far: the Fast (Warp + Inpaint) mode, the node's default, given a
-model bundle (`diffusion.build_sd_model`, or anything with `unet_apply`):
-all frames run batched with per-frame seeds seed + frame_idx, at the
-model's square sample size, and both eyes are resized back to the input's
-size. Standard (DDIM) mode and the model resolution from a connected
-ComfyUI model, a `model_id` or the offline toy model raise
-`NotImplementedError` naming the ROADMAP item that ports them.
+Both modes are ported, given a model bundle (`diffusion.build_sd_model`,
+`diffusion.make_toy_model`, or anything with `unet_apply`), and run at the
+model's square sample size, with both eyes resized back to the input's
+size afterwards. Fast (Warp + Inpaint), the default, runs all frames
+batched with per-frame seeds seed + frame_idx; Standard (DDIM) runs the
+first frame through `text2stereo` (DDIM inversion, null-text optimisation
+with 10 inner steps, the stereo denoising loop). The model resolution from
+a connected ComfyUI model, a `model_id` or the offline toy model raises
+`NotImplementedError` naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, as_float_tensor, resolve_device
-from ..diffusion.sd_pipeline import resize_bilinear, warp_inpaint
+from ..diffusion.sd_pipeline import resize_bilinear, text2stereo, warp_inpaint
 
 PIPELINE_MODES = ("Standard (DDIM)", "Fast (Warp + Inpaint)")
 
@@ -126,15 +128,11 @@ class StereoDiffusionNode:
         """Returns (stereo_pair [B,H,2W,3], left [B,H,W,3], right [B,H,W,3])
         as CPU float32 tensors. `device=None` means CUDA; the model bundle
         must live on the same device."""
-        if pipeline_mode == "Standard (DDIM)":
-            raise NotImplementedError(
-                "StereoDiffusion Standard (DDIM) mode is not ported yet: "
-                "ROADMAP queue 1 items 12-13")
         if model is None or not hasattr(model, "unet_apply"):
             raise NotImplementedError(
                 "StereoDiffusion model resolution (connected ComfyUI models, "
                 "model ids, the offline toy model) is not ported yet: ROADMAP "
-                "queue 1 item 13; pass a bundle from diffusion.build_sd_model")
+                "queue 1 item 13b; pass a bundle from diffusion.build_sd_model")
         dev = resolve_device(device)
         if torch.device(model.device) != dev:
             raise ValueError(f"model bundle on {model.device}, node asked for {dev}")
@@ -155,11 +153,21 @@ class StereoDiffusionNode:
         img = _resize_to(img, s, s)
         dm = _resize_to(dm, s, s)
         with torch.no_grad():
-            out = warp_inpaint(
-                model, img, dm, prompt, divergence=scale_factor,
-                num_inference_steps=num_inference_steps,
-                strength=denoise_strength, guidance_scale=guidance_scale,
-                seed=seed + np.arange(img.shape[0], dtype=np.uint64))
+            if pipeline_mode == "Standard (DDIM)":
+                # First frame only; null-text optimisation enables autograd
+                # for itself.
+                out = text2stereo(
+                    model, img[:1].permute(0, 3, 1, 2) * 2.0 - 1.0, dm[:1], prompt,
+                    scale_factor=scale_factor, direction=direction, deblur=deblur,
+                    guidance_scale=guidance_scale,
+                    num_inference_steps=num_inference_steps,
+                    null_text_optimization=null_text_optimization, seed=seed)
+            else:
+                out = warp_inpaint(
+                    model, img, dm, prompt, divergence=scale_factor,
+                    num_inference_steps=num_inference_steps,
+                    strength=denoise_strength, guidance_scale=guidance_scale,
+                    seed=seed + np.arange(img.shape[0], dtype=np.uint64))
         left = _resize_to(out.left, orig_h, orig_w).cpu()
         right = _resize_to(out.right, orig_h, orig_w).cpu()
         return torch.cat([left, right], dim=2), left, right

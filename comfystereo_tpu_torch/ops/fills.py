@@ -43,6 +43,37 @@ def _take_w(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# Deterministic scatter helpers over the last axis of [..., W] tensors.
+# --------------------------------------------------------------------------
+
+def _flat_scatter(reduce: str, dest: torch.Tensor, values: torch.Tensor,
+                  valid: torch.Tensor, width: int, init) -> torch.Tensor:
+    """Scatter `values` to `dest` along the last axis with an amin/amax
+    combiner on one flat buffer; invalid lanes go to a dump slot past the
+    end. Deterministic (the combiners are associative and commutative)."""
+    shape = tuple(dest.shape)
+    n_rows = math.prod(shape[:-1])
+    total = n_rows * width
+    row_id = torch.arange(n_rows, dtype=torch.int64, device=dest.device)
+    gidx = row_id.reshape(shape[:-1] + (1,)) * width + torch.clamp(dest.long(), 0, width - 1)
+    gidx = torch.where(valid, gidx, total)  # dump slot
+    buf = torch.full((total + 1,), init, dtype=values.dtype, device=values.device)
+    buf = buf.scatter_reduce(0, gidx.reshape(-1), values.reshape(-1), reduce,
+                             include_self=True)
+    return buf[:total].reshape(shape[:-1] + (width,))
+
+
+def scatter_min_w(dest, values, valid, width: int, init) -> torch.Tensor:
+    """Per-row minimum of `values` at columns `dest` (`init` where none)."""
+    return _flat_scatter("amin", dest, values, valid, width, init)
+
+
+def scatter_max_w(dest, values, valid, width: int, init) -> torch.Tensor:
+    """Per-row maximum of `values` at columns `dest` (`init` where none)."""
+    return _flat_scatter("amax", dest, values, valid, width, init)
+
+
+# --------------------------------------------------------------------------
 # Sort-based exact winner selection: a lexicographic sort of (dest,
 # priority...) keys, then for each output column a windowed binary search for
 # the first element of its dest group.

@@ -553,3 +553,114 @@ def test_flash_kernel_rejects_unsupported_shapes(dev):
     with pytest.raises(ValueError):
         flash_attention.flash_attention(q, q, q, 0.1)
     assert flash_attention.LAUNCHES == before
+
+
+# --- the flash kernel's gradient and the Standard path --------------------------
+
+def _flash_qkv(dev, bh, nq, nk, d, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((bh, n, d), dtype=np.float32)).to(
+        dev, torch.bfloat16) for n in (nq, nk, nk)]
+
+
+@pytest.mark.parametrize("bh,nq,nk,d", [
+    (8, 4096, 4096, 40),    # null-text backward, level 0 (one latent, 8 heads)
+    (16, 4096, 8192, 40),   # BN 'bi' pair
+    (8, 1024, 1024, 80),    # level 1
+    (2, 1024, 1024, 80),
+    (2, 1152, 1024, 20),    # padded head dimension
+])
+def test_flash_autograd_matches_reference_bf16_gradient(dev, bh, nq, nk, d):
+    """The backward is `reference_bf16`'s VJP bit for bit for one cotangent
+    and launches nothing; the gradient of sum(o^2) is within 2% of the
+    largest |component| of `reference_bf16`'s own (5 bf16 ulps there): the
+    forwards differ (f32 logits in the kernel, bf16 in `reference_bf16`),
+    so the cotangents 2o differ too (on the CPU, with `reference` as the
+    forward: up to 2 ulps, 7.8e-3 at 0.52)."""
+    q, k, v = _flash_qkv(dev, bh, nq, nk, d, bh + nq + d)
+    scale = d ** -0.5
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    g = torch.randn((bh, nq, d), device=dev).to(torch.bfloat16)
+    before = flash_attention.LAUNCHES
+    out = flash_attention.flash_attention(*qkv, scale)
+    got = torch.autograd.grad(out, qkv, g)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == before + 1
+    want = torch.autograd.grad(flash_attention.reference_bf16(*qkv, scale), qkv, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+    def grads(fn):
+        x = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        return torch.autograd.grad((fn(*x, scale).float() ** 2).sum(), x)
+
+    for a, b in zip(grads(flash_attention.flash_attention), grads(flash_attention.reference_bf16)):
+        assert bool(torch.isfinite(a).all())
+        assert float((a.float() - b.float()).abs().max()) <= 2e-2 * float(b.float().abs().max())
+
+
+def test_text2stereo_tiny_on_card_matches_cpu(dev, monkeypatch):
+    """float32 TINY UNet + VAE, 64x64, 4 steps, null-text with 2 inner
+    steps, deblur on with the same injected noise: left and right within
+    1e-3 of the CPU's (float32 sums in other orders through the loop). TF32
+    off, as chip_smoke.py runs: cuDNN's default TF32 convolutions alone put
+    the card 1.7e-2 from the CPU here."""
+    from comfystereo_tpu_torch.diffusion import (TINY_SD_UNET_CONFIG, TINY_SD_VAE_CONFIG,
+                                                 build_sd_model, sd_pipeline)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    img = fixtures.create_test_image(64, 64).astype(np.float32)[None] / 255.0
+    depth = fixtures.create_depth_map(64, 64).astype(np.float32)[None] / 255.0
+    x = torch.from_numpy(img).permute(0, 3, 1, 2) * 2.0 - 1.0
+    noise = torch.randn((1, 4, 32, 32), generator=torch.Generator().manual_seed(3))
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        m = build_sd_model(TINY_SD_UNET_CONFIG, TINY_SD_VAE_CONFIG, seed=0, device=d)
+        outs.append(sd_pipeline.text2stereo(
+            m, x.to(d), torch.from_numpy(depth).to(d), "a cat", scale_factor=8.0,
+            deblur=True, guidance_scale=3.0, num_inference_steps=4,
+            null_text_optimization=True, num_inner_steps=2, noise=noise.to(d)))
+    for a, b in zip(outs[0], outs[1]):
+        assert a.device.type == "cuda"
+        assert float((a.cpu() - b).abs().max()) <= 1e-3
+
+
+def test_null_text_gradient_through_kernel_tiny_bf16(dev):
+    """The TINY UNet in bf16 at 64x64 takes the kernel at its 1024-token
+    level: the null-text gradient of u through the kernel's autograd is
+    within 0.05 (relative L2) of the gradient with the attention forced to
+    its plain version, and the self-attentions carry part of it."""
+    from comfystereo_tpu_torch.diffusion import (TINY_SD_UNET_CONFIG, TINY_SD_VAE_CONFIG,
+                                                 build_sd_model, schedulers)
+    m = build_sd_model(TINY_SD_UNET_CONFIG, TINY_SD_VAE_CONFIG, seed=0, device=dev,
+                       dtype=torch.bfloat16)
+    sched = schedulers.make_ddim(10)
+    t = int(sched.timesteps[0])
+    gen = torch.Generator().manual_seed(1)
+    lat = torch.randn((1, 4, 32, 32), generator=gen).to(dev)
+    prev = lat + 0.05 * torch.randn(lat.shape, generator=gen).to(dev)
+
+    def grad():
+        cond = m.text_encode("")
+        with torch.no_grad():
+            eps_c = m.unet_apply(lat, t, cond)
+        u = cond.clone().requires_grad_(True)
+        eps_u = m.unet_apply(lat, t, u)
+        eps = eps_u + 3.0 * (eps_c - eps_u)
+        loss = torch.mean((schedulers.ddim_step(sched, eps, t, lat) - prev) ** 2)
+        return torch.autograd.grad(loss, u)[0].float()
+
+    kernel = flash_attention.flash_attention
+    before = flash_attention.LAUNCHES
+    g_k = grad()
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES > before
+    try:
+        flash_attention.flash_attention = flash_attention.reference
+        g_p = grad()
+        flash_attention.flash_attention = lambda q, k, v, s: kernel(q, k, v, s).detach()
+        g_cut = grad()
+    finally:
+        flash_attention.flash_attention = kernel
+    rel = float((g_k - g_p).norm() / g_p.norm())
+    assert rel <= 0.05
+    assert float((g_k - g_cut).norm() / g_k.norm()) > rel

@@ -373,12 +373,8 @@ def test_stereodiffusion_node_fast_matches_jax(models, monkeypatch):
 
 
 def test_node_raises_for_unported_modes(models):
-    _, tm = models[9]
     img, dep = _frames(64, 64, n=1)
     node = tnode.StereoDiffusionNode()
-    with pytest.raises(NotImplementedError, match="Standard"):
-        node.generate_stereo(img, dep, pipeline_mode="Standard (DDIM)", model=tm,
-                             device="cpu")
     with pytest.raises(NotImplementedError, match="model resolution"):
         node.generate_stereo(img, dep, device="cpu", model_id="runwayml/stable-diffusion-v1-5")
     assert tnode.StereoDiffusionNode.INPUT_TYPES() == jnode.StereoDiffusionNode.INPUT_TYPES()

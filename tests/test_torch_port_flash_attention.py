@@ -10,6 +10,7 @@ numpy draws from a seed, rounded to bf16 the same way on both sides.
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -190,3 +191,56 @@ def test_bn_attention_cross_and_bf16_match_jax():
     got = tatt.bn_attention(q, k, v, 40 ** -0.5, is_cross=False, mode=mode_t,
                             active=True)
     np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=1.6e-2)
+
+
+# --- the gradient --------------------------------------------------------------
+
+GRAD_SHAPE = (2, 1024, 1024, 40)
+
+
+def _port_grads(fn, q, k, v, scale):
+    """Gradients of sum(o^2) w.r.t. q, k, v through `fn`, as f32 numpy."""
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fn(*qkv, scale)
+    (out.float() ** 2).sum().backward()
+    return out, [_np(t.grad) for t in qkv]
+
+
+def test_flash_gradient_matches_jax_kernel_vjp():
+    """The port's gradient through `flash_attention` on the CPU (forward
+    `reference`, backward the recompute of `reference_bf16`) against
+    jax.grad through the Pallas kernel in interpret mode, whose custom VJP
+    recomputes `_reference_bf16`: dq, dk and dv within JAX's own atol 4e-3
+    (tests/test_flash_attention.py; measured 1e-3, 2e-3, 1e-3)."""
+    (jq, jk, jv), (q, k, v) = _both(_qkv(GRAD_SHAPE, 21), "bfloat16")
+    scale = GRAD_SHAPE[3] ** -0.5
+
+    def loss(q_, k_, v_):
+        return jnp.sum(jfa.flash_attention(q_, k_, v_, scale, True).astype(jnp.float32) ** 2)
+
+    want = [np.asarray(g, np.float32) for g in jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)]
+    before = tfa.LAUNCHES
+    out, got = _port_grads(tfa.flash_attention, q, k, v, scale)
+    assert tfa.LAUNCHES == before
+    assert type(out.grad_fn).__name__.startswith("FlashAttentionFn")
+    for g, w in zip(got, want):
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, w, rtol=0, atol=4e-3)
+
+
+def test_flash_backward_is_the_reference_bf16_vjp():
+    """Given one cotangent, the wrapper's backward is `reference_bf16`'s
+    autograd VJP bit for bit (one recompute, nothing else), also when the
+    caller runs under `torch.no_grad()` elsewhere."""
+    _, (q, k, v) = _both(_qkv(GRAD_SHAPE, 22), "bfloat16")
+    scale = GRAD_SHAPE[3] ** -0.5
+    g = torch.from_numpy(np.random.default_rng(23).standard_normal(
+        (2, 1024, 40), dtype=np.float32)).to(torch.bfloat16)
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(tfa.flash_attention(*qkv, scale), qkv, g)
+    want = torch.autograd.grad(tfa.reference_bf16(*qkv, scale), qkv, g)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+    with torch.no_grad():
+        out = tfa.flash_attention(*qkv, scale)
+    assert out.grad_fn is None and torch.equal(out, tfa.reference(q, k, v, scale))

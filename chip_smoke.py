@@ -61,8 +61,18 @@ any failure ends the run with a non-zero exit code:
    second call ('bi', deblur on, 5 steps, no null-text): flash launches
    10 per UNet forward plus 10 per stereo-active CFG call, the UNet calls
    counted around `unet_apply` (the backward launches none); outputs
-   finite in [0, 1]; and one null-text gradient of u at full width through
-   the kernel against the plain attention's (relative L2 <= 0.05);
+   finite in [0, 1]; one null-text gradient of u at full width through
+   the kernel against the plain attention's (relative L2 <= 0.05); and,
+   from two diffusers-layout directories written under build/sd_checkpoints/
+   before the diffusion parts (seeded float16 weights by the port's own
+   safetensors writer: SD 1.5-inpainting and SD 1.5, each with the CLIP
+   ViT-L/14 text tower and a vocab generated at CLIP's size), the node
+   resolving its own model offline: Fast mode with `inpaint_model_id`
+   (`load_inpainting_model`, bf16, the checkpoint's CLIP; flash 130), one
+   CFG call of that bundle bit-equal to `build_sd_model`'s on the same
+   float16 weights, the w8 model's CFG call within 0.05 of it (flash 10),
+   Standard mode with `model_id` (5 steps, no null-text; float32, flash 0),
+   and an id on no disk falling back loudly to the toy model on the card;
 4. card vs CPU: the division by a scalar each way (the share of values
    that differ from the CPU's; `device.true_divide` must give the CPU's
    bits) and pow at a few exponents; the port's stereo_pipeline on 2
@@ -75,7 +85,10 @@ any failure ends the run with a non-zero exit code:
    warp_inpaint at the TINY UNet (9- and 4-channel) and VAE configs in
    float32 with the same injected noise on the card and on the CPU; and
    text2stereo at the TINY configs (4 steps, null-text with 2 inner steps,
-   deblur on, the same injected noise), left and right within 1e-3;
+   deblur on, the same injected noise), left and right within 1e-3; and a
+   TINY checkpoint directory read by the port's own safetensors parser and
+   loaded in float32 on the card and on the CPU: text embeddings, a UNet
+   call, VAE encode and decode and the w8 TINY model's eps within 1e-4;
 5. times with CUDA events (warm-up, then >= 10 iterations, fewer for the
    slowest plain versions): each kernel and its plain version at the main
    path's shapes beside the bound (and torch.gather beside the gather; the
@@ -96,6 +109,11 @@ any failure ends the run with a non-zero exit code:
    iterations and ms per iteration, the denoising loop's CFG calls before
    and after the stereo start, the decode), its peak device memory and
    its idle share (each part's unit profiled, weighted by time); for
+   the checkpoint directories' write and load seconds, CLIP encode of one
+   prompt (bf16 and float32, first call and cached), the Fast frame through
+   the loaded bundle against `build_sd_model`'s in turns, and the w8 CFG
+   call against bf16 with the UNet's bytes as stored and each call's peak
+   device memory; for
    the kernels redesigned after their port (all six) their registers,
    spills and shared memory from `-Xptxas -v`, for the gather of a colour plane its
    bound, and for the polylines kernels their recounted operations beside
@@ -1086,6 +1104,17 @@ def nan_guard_spy(seen: list):
         sd_pipeline._nan_guard = guard
 
 
+def check_sd_outputs(label: str, pair, left, right, s: int) -> None:
+    import torch
+    if (tuple(pair.shape), tuple(left.shape), tuple(right.shape)) != (
+            (1, s, 2 * s, 3), (1, s, s, 3), (1, s, s, 3)):
+        raise AssertionError(f"{label}: node output shapes {tuple(pair.shape)}, "
+                             f"{tuple(right.shape)}")
+    for t in (pair, left, right):
+        if not bool(torch.isfinite(t).all()) or float(t.min()) < 0 or float(t.max()) > 1:
+            raise AssertionError(f"{label}: node outputs not finite or outside [0, 1]")
+
+
 def phase_diffusion(dev):
     """The StereoDiffusion node in Fast mode, node defaults, on one 512x512
     fixture frame, full-width SD 1.5-inpainting UNet + SD VAE in bf16 with
@@ -1118,12 +1147,7 @@ def phase_diffusion(dev):
     if launches != want:
         raise AssertionError(f"StereoDiffusion Fast launches {launches}, expected {want}")
     s = SD_SIZE
-    if (tuple(pair.shape), tuple(left.shape), tuple(right.shape)) != (
-            (1, s, 2 * s, 3), (1, s, s, 3), (1, s, s, 3)):
-        raise AssertionError(f"node output shapes {tuple(pair.shape)}, {tuple(right.shape)}")
-    for t in (pair, left, right):
-        if not bool(torch.isfinite(t).all()) or float(t.min()) < 0 or float(t.max()) > 1:
-            raise AssertionError("node outputs not finite or outside [0, 1]")
+    check_sd_outputs("StereoDiffusion Fast", pair, left, right, s)
     if seen != [0]:
         raise AssertionError(f"the NaN guard scrubbed {seen} non-finite values")
     if not torch.equal(left, torch.from_numpy(img)):
@@ -1311,12 +1335,7 @@ def phase_standard(dev):
         want["flash_attention"] = SD_FLASH_PER_CALL * (calls.forward + calls.stereo)
         if launches != want:
             raise AssertionError(f"Standard {label} launches {launches}, expected {want}")
-        if (tuple(pair.shape), tuple(left.shape), tuple(right.shape)) != (
-                (1, s, 2 * s, 3), (1, s, s, 3), (1, s, s, 3)):
-            raise AssertionError(f"Standard node output shapes {tuple(pair.shape)}")
-        for t in (pair, left, right):
-            if not bool(torch.isfinite(t).all()) or float(t.min()) < 0 or float(t.max()) > 1:
-                raise AssertionError("Standard node outputs not finite or outside [0, 1]")
+        check_sd_outputs(f"Standard {label}", pair, left, right, s)
         if seen != [0]:
             raise AssertionError(f"the NaN guard scrubbed {seen} non-finite values")
         lr_diff = float((left - right).abs().mean())
@@ -1397,6 +1416,365 @@ def check_null_text_grad(model):
     if rel_cut <= rel:
         raise AssertionError("the self-attentions carry no gradient")
     return {"rel_l2_kernel_vs_plain": rel, "rel_l2_without_self_attention": rel_cut}
+
+
+# --- StereoDiffusion from a checkpoint ------------------------------------------
+
+CKPT_ROOT = os.path.join(HERE, "build", "sd_checkpoints")
+SD_PROMPT = "a wooden house on the shore of a quiet lake, mountains behind it"
+TOY_BANNER = "FALLING BACK TO THE OFFLINE TOY MODEL"
+
+
+def tests_module(name: str):
+    """A module of tests/ loaded by path (it imports the port, never JAX)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, os.path.join(HERE, "tests", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def write_checkpoints():
+    """Two diffusers-layout directories under build/ with the port's
+    safetensors writer (float16, seeded with `porting.random_init_`'s rule,
+    tests/torch_checkpoint.py): SD 1.5-inpainting (9-channel UNet) and SD
+    1.5 (4-channel UNet, its vae/, text_encoder/ and tokenizer/ hard links
+    to the first's), each with the CLIP ViT-L/14 text tower and a vocab
+    generated at CLIP's size."""
+    import shutil
+    from comfystereo_tpu_torch.diffusion import (SD15_INPAINT_UNET_CONFIG, SD15_TEXT_CONFIG,
+                                                 SD15_UNET_CONFIG, SD_VAE_CONFIG)
+    ckpt = tests_module("torch_checkpoint")
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    vocab = ckpt.clip_vocab()
+    inpaint, sd15 = (os.path.join(CKPT_ROOT, n) for n in ("sd15-inpainting", "sd15"))
+    states, n1, s1 = ckpt.write_sd_dir(inpaint, SD15_INPAINT_UNET_CONFIG, SD_VAE_CONFIG,
+                                       SD15_TEXT_CONFIG, vocab, seed=0)
+    _, n2, s2 = ckpt.write_sd_dir(sd15, SD15_UNET_CONFIG, SD_VAE_CONFIG, SD15_TEXT_CONFIG,
+                                  vocab, seed=0, share_from=inpaint)
+    sec = time.perf_counter() - t0
+    n_text = sum(v.numel() for v in states["text_encoder"].values())
+    if n_text != 123_060_480 or len(vocab[0]) != 49408:
+        raise AssertionError(f"text tower {n_text} parameters, vocab {len(vocab[0])} ids")
+    log(f"phase 3 checkpoints: {inpaint} {n1 / 1e9:.3f} GB in {s1:.1f} s, {sd15} {n2 / 1e9:.3f} "
+        f"GB in {s2:.1f} s (its vae/, text_encoder/ and tokenizer/ hard links), float16 "
+        f"safetensors by the port's own writer, read back by its own parser; CLIP ViT-L/14 "
+        f"text tower {n_text:,} parameters, vocab "
+        f"{len(vocab[0])} ids; {sec:.1f} s in all")
+    return {"inpaint": inpaint, "sd15": sd15, "unet_state": states["unet"],
+            "vae_state": states["vae"], "write_s": sec, "bytes": n1 + n2}
+
+
+def phase_checkpoint(dev, ck):
+    """The StereoDiffusion node resolving its own model from the checkpoint
+    directories, offline (COMFYSTEREO_OFFLINE=1):
+    (a) Fast mode, node defaults, `inpaint_model_id` = the inpainting
+        directory and a prompt: the bundle from `load_inpainting_model` in
+        bf16 with the checkpoint's CLIP; flash 130;
+    (b) one UNet CFG call of that bundle bit-equal to `build_sd_model`'s on
+        the same float16 weights;
+    (e) w8: the same weights with `weight_quant=True`, one CFG call within
+        0.05 (mean |delta eps| / mean |eps|), flash 10;
+    (c) Standard mode, `model_id` = the SD 1.5 directory, 5 steps, no
+        null-text: float32 from `load_sd_model`, flash 0;
+    (d) an id on no disk: the loud banner, and the toy model on the card."""
+    import io
+    import torch
+    from comfystereo_tpu_torch.diffusion import (SD15_INPAINT_UNET_CONFIG, SD_VAE_CONFIG,
+                                                 NativeCLIPTextEncoder, build_sd_model,
+                                                 porting, quantize, schedulers)
+    from comfystereo_tpu_torch.nodes import stereodiffusion as node_mod
+    from comfystereo_tpu_torch.utils import caching
+    os.environ["COMFYSTEREO_OFFLINE"] = "1"
+    caching.clear_model_cache()
+    img, dep = sd_fixture(SD_SIZE)
+    s, node = SD_SIZE, node_mod.StereoDiffusionNode()
+    loads, load = [], porting.load_sd_from_diffusers_dir
+
+    def timed_load(*args, **kw):
+        t0 = time.perf_counter()
+        out = load(*args, **kw)
+        sync()
+        loads.append(time.perf_counter() - t0)
+        return out
+
+    porting.load_sd_from_diffusers_dir = timed_load
+    try:
+        seen = []
+        reset_launches()
+        t0 = time.perf_counter()
+        with nan_guard_spy(seen):
+            pair, left, right = node.generate_stereo(img, dep, inpaint_model_id=ck["inpaint"],
+                                                     prompt=SD_PROMPT, device=dev)
+        fast_s = time.perf_counter() - t0
+        fast_launches = read_launches()
+        fast = caching._model_cache.get(f"{ck['inpaint']}:inpaint:{dev}")
+        reset_launches()
+        t0 = time.perf_counter()
+        with nan_guard_spy(seen):
+            spair, sleft, sright = node.generate_stereo(
+                img, dep, pipeline_mode="Standard (DDIM)", model_id=ck["sd15"],
+                prompt=SD_PROMPT, num_inference_steps=5, null_text_optimization=False,
+                device=dev)
+        std_s = time.perf_counter() - t0
+        std_launches = read_launches()
+        std = caching._model_cache.get(f"{ck['sd15']}:ddim:{dev}")
+    finally:
+        porting.load_sd_from_diffusers_dir = load
+    if fast is None or std is None or len(loads) != 2:
+        raise AssertionError(f"the node did not load through model_loader ({len(loads)} loads)")
+    want = {k: 0 for k in fast_launches}
+    want["flash_attention"] = SD_UNET_CALLS * SD_FLASH_PER_CALL
+    if fast_launches != want:
+        raise AssertionError(f"loaded Fast launches {fast_launches}, expected {want}")
+    if std_launches != {k: 0 for k in std_launches}:
+        raise AssertionError(f"loaded Standard (float32) launches {std_launches}, expected none")
+    if seen != [0, 0]:
+        raise AssertionError(f"the NaN guard scrubbed {seen} non-finite values")
+    for m, dt in ((fast, torch.bfloat16), (std, torch.float32)):
+        te = m.text_encode
+        if next(m.unet.parameters()).dtype != dt or not isinstance(te, NativeCLIPTextEncoder) \
+                or next(te.model.parameters()).dtype != dt or SD_PROMPT not in te \
+                or m.device != dev:
+            raise AssertionError(f"loaded bundle: not {dt} on {dev} with the checkpoint's CLIP")
+    if fast.unet_in_channels != 9 or std.unet_in_channels != 4:
+        raise AssertionError("loaded UNets' input channels")
+    check_sd_outputs("loaded Fast", pair, left, right, s)
+    check_sd_outputs("loaded Standard", spair, sleft, sright, s)
+    cond, unc = fast.text_encode(SD_PROMPT), fast.text_encode("")
+    cond_diff = rel_l2(cond, unc)
+    if not cond_diff > 0:
+        raise AssertionError("the prompt's CLIP embedding equals the empty prompt's")
+    log(f"phase 3 loaded Fast: node resolved inpaint_model_id (load_inpainting_model, bf16, "
+        f"load {loads[0]:.1f} s) and ran 1 frame {s}x{s} in {fast_s:.2f} s (first call, "
+        f"load included), launches {fast_launches}; CLIP conditioning {tuple(cond.shape)}, "
+        f"relative L2 from the empty prompt's {cond_diff:.3f}")
+    log(f"phase 3 loaded Standard: node resolved model_id (load_sd_model, ddim, float32, load "
+        f"{loads[1]:.1f} s), 5 steps, no null-text, in {std_s:.2f} s, launches "
+        f"{std_launches} (flash {std_launches['flash_attention']}, against the loaded Fast "
+        f"{fast_launches['flash_attention']}: float32 never takes the kernel)")
+
+    # (b) and (e): the loaded bundle's CFG call against build_sd_model's on
+    # the same float16 weights, and the w8 model's.
+    ref = build_sd_model(SD15_INPAINT_UNET_CONFIG, SD_VAE_CONFIG, dtype=torch.bfloat16,
+                         device=dev, unet_state=ck["unet_state"], vae_state=ck["vae_state"])
+    same = all(torch.equal(a, b) for a, b in zip(fast.unet.state_dict().values(),
+                                                 ref.unet.state_dict().values()))
+    gen = torch.Generator().manual_seed(5)
+    ls = s // 2 ** (len(fast.vae.cfg.block_out_channels) - 1)
+    lat = torch.randn((2, fast.unet_in_channels, ls, ls), generator=gen).to(dev)
+    ctx = torch.cat([unc, cond])
+    t_first = int(schedulers.pndm_skip_timesteps(schedulers.make_pndm(20), 0.6)[0])
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        eps_l = fast.unet_apply(lat, t_first, ctx)
+        eps_r = ref.unet_apply(lat, t_first, ctx)
+    sync()
+    if not same or not torch.equal(eps_l, eps_r):
+        raise AssertionError(f"loaded bundle vs build_sd_model: weights equal {same}, eps "
+                             f"max |diff| {float((eps_l - eps_r).abs().max())}")
+    w8 = build_sd_model(SD15_INPAINT_UNET_CONFIG, SD_VAE_CONFIG, dtype=torch.bfloat16,
+                        device=dev, unet_state=ck["unet_state"], vae_state=ck["vae_state"],
+                        weight_quant=True)
+    n_w8 = sum(isinstance(m, quantize.W8Linear) for m in w8.unet.modules())
+    reset_launches()
+    eps_q = w8.unet_apply(lat, t_first, ctx)
+    sync()
+    w8_launches = read_launches()["flash_attention"]
+    w8_rel = float((eps_q - eps_r).abs().mean() / eps_r.abs().mean())
+    if not bool(torch.isfinite(eps_q).all()) or w8_rel >= 0.05 or \
+            w8_launches != SD_FLASH_PER_CALL:
+        raise AssertionError(f"w8 CFG call: mean |delta eps| / mean |eps| {w8_rel} (bound "
+                             f"0.05), flash launches {w8_launches}")
+    bytes_bf16, bytes_w8 = quantize.quantized_bytes(ref.unet), quantize.quantized_bytes(w8.unet)
+    log(f"phase 3 loaded CFG call {tuple(lat.shape)} at t={t_first}: bit-equal to "
+        f"build_sd_model's on the same float16 weights (weights equal); w8 ({n_w8} layers "
+        f"quantised) mean |delta eps| / mean |eps| {w8_rel:.4f} (bound 0.05), flash "
+        f"{w8_launches}; UNet stored {bytes_bf16 / 1e9:.3f} GB bf16, {bytes_w8 / 1e9:.3f} GB w8")
+
+    # (d) An id on no disk: the loud toy fallback, on the card.
+    buf = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(buf):
+        tpair, tleft, tright = node.generate_stereo(img, dep, inpaint_model_id="org/not-on-disk",
+                                                    device=dev)
+    toy_launches = read_launches()
+    out = buf.getvalue()
+    log(out.rstrip())
+    toy = node_mod._default_model(dev)
+    if TOY_BANNER not in out or "org/not-on-disk" not in out or toy.device != dev or \
+            next(toy.unet.parameters()).device.type != dev.type:
+        raise AssertionError("the unresolvable id did not fall back loudly to the toy on the card")
+    check_sd_outputs("toy fallback", tpair, tleft, tright, s)
+    log(f"phase 3 toy fallback: banner and trail printed, toy model on {dev} "
+        f"({toy.sample_size}x{toy.sample_size}), launches {toy_launches}")
+    log("phase 3 ok: StereoDiffusion from checkpoint directories (Fast via inpaint_model_id, "
+        "Standard via model_id, the loud toy fallback) and w8")
+    launches = (fast_launches["flash_attention"] + std_launches["flash_attention"]
+                + toy_launches["flash_attention"])
+    return {**ck, "fast": fast, "std": std, "ref": ref, "w8": w8, "lat": lat, "ctx": ctx,
+            "t": t_first, "load_s": loads, "fast_node_s": fast_s, "std_node_s": std_s,
+            "launches": launches, "w8_rel": w8_rel, "w8_layers": n_w8,
+            "unet_bytes": {"bf16": bytes_bf16, "w8": bytes_w8},
+            "flash_launches": {"fast": fast_launches["flash_attention"],
+                               "standard": std_launches["flash_attention"],
+                               "toy": toy_launches["flash_attention"], "w8_call": w8_launches}}
+
+
+def release_checkpoint_models(ck) -> None:
+    """Free the checkpoint phases' models (the model cache, which holds the
+    loaded bundles and the toy, included), so that the Standard frame's
+    peak device memory counts the models it counted before these phases
+    existed."""
+    import torch
+    from comfystereo_tpu_torch.utils import caching
+    for key in ("fast", "std", "ref", "w8", "lat", "ctx", "unet_state", "vae_state"):
+        ck.pop(key, None)
+    caching.clear_model_cache()
+    torch.cuda.empty_cache()
+
+
+def phase_checkpoint_card_vs_cpu(dev):
+    """A TINY diffusers directory (TINY UNet, VAE and text configs, the toy
+    vocab, float16 files) loaded in float32 on the card and on the CPU: the
+    text embeddings of three prompts, one UNet call, VAE encode and decode,
+    and the w8 TINY model's eps (min_elems 1024, q bit-equal), each within
+    1e-4 (TF32 off). The files are read by the port's own parser."""
+    import torch
+    from comfystereo_tpu_torch.diffusion import (TINY_SD_UNET_CONFIG, TINY_SD_VAE_CONFIG,
+                                                 TINY_TEXT_CONFIG, build_sd_model, porting,
+                                                 quantize)
+    ckpt = tests_module("torch_checkpoint")
+    d = os.path.join(CKPT_ROOT, "tiny")
+    states, _, _ = ckpt.write_sd_dir(d, TINY_SD_UNET_CONFIG, TINY_SD_VAE_CONFIG,
+                                     TINY_TEXT_CONFIG, ckpt.toy_vocab(), seed=2)
+    gen = torch.Generator().manual_seed(0)
+    lat, img = torch.randn(2, 4, 16, 16, generator=gen), torch.rand(1, 3, 32, 32, generator=gen)
+    ctx = torch.randn(2, 77, TINY_SD_UNET_CONFIG.cross_attention_dim, generator=gen)
+    names = ("text 'low'", "text 'lower lower'", "text ''", "UNet", "VAE encode", "VAE decode",
+             "w8 UNet")
+    outs, qs = [], []
+    for dv in (dev, torch.device("cpu")):
+        m = porting.load_sd_from_diffusers_dir(d, TINY_SD_UNET_CONFIG, TINY_SD_VAE_CONFIG,
+                                               dtype=torch.float32, device=dv)
+        z = m.vae_encode(img.to(dv) * 2 - 1)
+        w8 = build_sd_model(TINY_SD_UNET_CONFIG, TINY_SD_VAE_CONFIG, device=dv,
+                            unet_state=states["unet"])
+        quantize.quantize_module_(w8.unet, torch.float32, min_elems=1024)
+        qs.append([x.q.cpu() for x in w8.unet.modules() if isinstance(x, quantize.W8Linear)])
+        outs.append([m.text_encode(p) for p in ("low", "lower lower", "")]
+                    + [m.unet_apply(lat.to(dv), 500, ctx.to(dv)), z, m.vae_decode(z),
+                       w8.unet_apply(lat.to(dv), 500, ctx.to(dv))])
+    errs = {n: float((a.cpu() - b).abs().max()) for n, a, b in zip(names, *outs)}
+    if max(errs.values()) > 1e-4 or not qs[0] or \
+            not all(torch.equal(a, b) for a, b in zip(*qs)):
+        raise AssertionError(f"TINY checkpoint card vs CPU: {errs} (bound 1e-4), w8 q equal "
+                             f"{all(torch.equal(a, b) for a, b in zip(*qs))}")
+    log("phase 4 ok: TINY checkpoint directory (written and read by the port's own "
+        "safetensors writer and parser) loaded on the card and on the CPU (float32), max |err|: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; w8 q bit-equal in {len(qs[0])} layers")
+    return errs
+
+
+def unet_file_read_times(model_dir: str):
+    """Seconds to read a UNet's safetensors file into CPU tensors with the
+    port's parser and, where it is installed, with the safetensors
+    package's `load_file`, in turns (port, package, package, port); the
+    file is in the page cache from its writing."""
+    from comfystereo_tpu_torch.diffusion import porting
+    path = os.path.join(model_dir, "unet", "diffusion_pytorch_model.safetensors")
+    try:
+        from safetensors.torch import load_file
+    except ImportError:
+        load_file = None
+    readers = {"port": porting.load_safetensors, "package": load_file}
+    times = {"port": [], "package": [] if load_file else None, "bytes": os.path.getsize(path)}
+    for name in ("port", "package", "package", "port"):
+        if readers[name] is None:
+            continue
+        t0 = time.perf_counter()
+        tensors = readers[name](path)
+        times[name].append(time.perf_counter() - t0)
+        del tensors
+    return times
+
+
+def checkpoint_times(dev, sd, ck, smi: str):
+    """Directory write and load seconds; CLIP encode of one prompt at full
+    width in bf16 (the Fast bundle's) and float32 (the Standard bundle's):
+    the first call and the cached one on the host clock with a synchronise,
+    and the model's forward alone with CUDA events; the Fast frame through
+    the loaded bundle against `build_sd_model`'s, in turns (built, loaded,
+    loaded, built); the w8 CFG call against bf16, the UNet's bytes as
+    stored, and each call's peak device memory above what was resident;
+    the UNet file's read by the port's parser against the safetensors
+    package's (`unet_file_read_times`)."""
+    import numpy as np
+    import torch
+    from comfystereo_tpu_torch.diffusion import sd_pipeline
+    out = {"write_s": ck["write_s"], "bytes_written": ck["bytes"],
+           "load_s": {"fast_bf16": ck["load_s"][0], "standard_f32": ck["load_s"][1]}}
+    for key, m in (("bf16", ck["fast"]), ("f32", ck["std"])):
+        enc, prompt = m.text_encode, f"{SD_PROMPT}, timed in {key}"
+        ids = enc.tokenizer([prompt], padding="max_length", max_length=77, truncation=True,
+                            return_tensors="pt").input_ids.to(dev)
+        host = []
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            enc(prompt)
+            sync()
+            host.append((time.perf_counter() - t0) * 1e3)
+        with torch.no_grad():
+            fwd = time_ms(lambda: enc.model(ids), iters=10)
+        out[f"clip_{key}"] = {"first_ms": host[0], "cached_ms": host[1], "forward_ms": fwd}
+        log(f"  CLIP ViT-L/14 encode of one prompt, {key}: first call {host[0]:.2f} ms, cached "
+            f"{host[1]:.4f} ms, the model's forward alone {fwd:.3f} ms [{smi}]")
+    out["unet_read_s"] = read = unet_file_read_times(ck["inpaint"])
+    log(f"  reading the inpainting UNet's safetensors file ({read['bytes'] / 1e9:.3f} GB) "
+        f"into CPU tensors, in turns: port's parser {read['port']}, safetensors package "
+        f"{read['package']} s (timed here only; the port has no use for the package) [{smi}]")
+    img, dep = (torch.from_numpy(a).to(dev) for a in sd_fixture(SD_SIZE))
+
+    def frame(model):
+        sync()
+        t0 = time.perf_counter()
+        sd_pipeline.warp_inpaint(model, img, dep, SD_PROMPT, divergence=5.0,
+                                 num_inference_steps=20, strength=0.6, guidance_scale=3.0,
+                                 seed=np.array([SD_SEED], np.uint64))
+        sync()
+        return (time.perf_counter() - t0) * 1e3
+
+    built, loaded = sd["model"], ck["fast"]
+    frame(built)
+    frame(loaded)
+    turns = [("built", frame(built)), ("loaded", frame(loaded)), ("loaded", frame(loaded)),
+             ("built", frame(built))]
+    out["fast_frame_ms"] = {k: [ms for n, ms in turns if n == k] for k in ("built", "loaded")}
+    log(f"  StereoDiffusion Fast frame {SD_SIZE}x{SD_SIZE} bf16, in turns: " + ", ".join(
+        f"{n} {ms:.1f}" for n, ms in turns) + f" ms (loaded bundle: CLIP conditioning; built: "
+        f"the hash stand-in) [{smi}]")
+    lat, ctx, t = ck["lat"], ck["ctx"], ck["t"]
+    for key in ("ref", "w8"):
+        m = ck[key]
+        ms = time_ms(lambda: m.unet_apply(lat, t, ctx), iters=5)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        m.unet_apply(lat, t, ctx)
+        sync()
+        peak = torch.cuda.max_memory_allocated() - base
+        name = "bf16" if key == "ref" else "w8"
+        out[f"cfg_{name}"] = {"ms": ms, "peak_above_resident_bytes": peak,
+                              "unet_bytes": ck["unet_bytes"][name]}
+        log(f"  UNet CFG call {tuple(lat.shape)} {name}: {ms:.3f} ms, peak device memory "
+            f"{peak / 2 ** 30:.3f} GiB above the resident {base / 2 ** 30:.2f} GiB, UNet stored "
+            f"{ck['unet_bytes'][name] / 1e9:.3f} GB [{smi}]")
+    log(f"  checkpoint directories: written in {ck['write_s']:.1f} s ({ck['bytes'] / 1e9:.3f} "
+        f"GB), loaded onto the card in {ck['load_s'][0]:.1f} s (bf16 inpainting) and "
+        f"{ck['load_s'][1]:.1f} s (float32 SD 1.5) [{smi}]")
+    return out
 
 
 def phase_standard_card_vs_cpu(dev, size: int = 64):
@@ -1865,12 +2243,8 @@ def warp_work(off, nd, kw, c: int):
     - per candidate walked: the interval test (3);
     - per candidate inside its segment's interval: sw, frac, mstart and the
       tests (12), zz and the rule (6)."""
-    import importlib.util
     from comfystereo_tpu_torch.kernels import warp_kernel as wk
-    spec = importlib.util.spec_from_file_location(
-        "torch_warp_model", os.path.join(HERE, "tests", "torch_warp_model.py"))
-    model = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(model)
+    model = tests_module("torch_warp_model")
     n, w = off.shape
     _, _, walked, tested = model.walk_model(off, nd, kw["gradient_threshold"],
                                             kw["max_stretch"], kw["max_disp"])
@@ -2336,21 +2710,32 @@ def main() -> int:
     smi, name = phase_device()
     errs = phase_kernels(dev)
     launches, _ = phase_main_path(dev)
+    ck = write_checkpoints()
     sd = phase_diffusion(dev)
     std = phase_standard(dev)
     launches["flash_attention"] = sd["launches"]["flash_attention"] + std["launches"]
+    ck = phase_checkpoint(dev, ck)
+    launches["flash_attention"] += ck["launches"]
     phase_card_vs_cpu(dev)
     phase_diffusion_card_vs_cpu(dev)
     std_cpu_errs = phase_standard_card_vs_cpu(dev)
+    ckpt_cpu_errs = phase_checkpoint_card_vs_cpu(dev)
     kernels, pipeline = phase_times(dev, launches, errs, smi, name)
     flash, pipeline["stereodiffusion_fast"] = diffusion_times(
         dev, sd, sd["launches"]["flash_attention"], errs["flash_max_abs_err"], smi, name)
-    # launches: the Fast node's and both Standard node calls'.
+    # launches: the Fast node's, both Standard node calls' and the loaded
+    # bundles' node calls'.
     flash["launches"] = launches["flash_attention"]
     flash["backward"] = "recompute of reference_bf16 (autograd, no kernel)"
     flash["grad_max_abs_err"] = errs["flash_grad_max_abs_err"]
     flash["backward_ms"], flash["library_backward_ms"] = flash_backward_times(dev, smi)
     kernels.append(flash)
+    pipeline["checkpoint"] = dict(
+        checkpoint_times(dev, sd, ck, smi), w8_rel=ck["w8_rel"], w8_layers=ck["w8_layers"],
+        flash_launches=ck["flash_launches"], node_first_call_s={
+            "fast": ck["fast_node_s"], "standard_5_steps": ck["std_node_s"]},
+        card_vs_cpu=ckpt_cpu_errs)
+    release_checkpoint_models(ck)
     std_times = standard_times(dev, std, smi)
     pipeline["stereodiffusion_standard"] = dict(
         std_times, runs=std["runs"], null_text_grad=std["grad"], card_vs_cpu=std_cpu_errs)

@@ -7,17 +7,22 @@ JAX package's layout so each module's counterpart is easy to find.
 Ported so far: the depth->stereo path through `stereo_pipeline`, the Stereo
 Image node and the video loop, with the directional depth blur and every
 fill technique: the default `gpu_warp` and the CPU-parity fills with the
-exact polylines renderer; and the StereoDiffusion node's Fast (Warp +
-Inpaint) and Standard (DDIM) modes on the SD UNet and VAE (`diffusion/`). Its five accelerator
-kernels are hand-written CUDA for Hopper (sm_90a) in `csrc/`: the forward
-warp (`kernels/warp_kernel.py`), the row edge-distance transform
+exact and supersampled polylines renderers; and the StereoDiffusion node's
+Fast (Warp + Inpaint) and Standard (DDIM) modes on the SD UNet, VAE and CLIP
+text encoder (`diffusion/`), with the model resolved from a connected torch
+model, a diffusers checkpoint directory or hub id, or the toy model, and
+optional w8 UNet weights. Its six accelerator kernels are hand-written CUDA
+for Hopper (sm_90a) in `csrc/`: the forward warp
+(`kernels/warp_kernel.py`), the row edge-distance transform
 (`kernels/distance.py`), the bounded gather (`kernels/gather.py`), the exact
-polylines scan (`kernels/polylines_exact.py`) and the flash attention of the
-UNet's bf16 self-attentions (`kernels/flash_attention.py`). Each wrapper
-runs its plain PyTorch version for CPU tensors.
+and the supersampled polylines scans (`kernels/polylines_exact.py`,
+`kernels/polylines.py`) and the flash attention of the UNet's bf16
+self-attentions (`kernels/flash_attention.py`). Each wrapper runs its plain
+PyTorch version for CPU tensors.
 
 Entry points (`StereoImageNode.generate`, `convert_video`, `device_chunk`,
-`StereoDiffusionNode.generate_stereo`, `diffusion.build_sd_model`) take
+`StereoDiffusionNode.generate_stereo`, `diffusion.build_sd_model`,
+`diffusion.load_sd_from_diffusers_dir`, the `model_loader` functions) take
 `device=None`, which means CUDA; without a GPU they raise unless
 `device="cpu"` is passed.
 """

@@ -1,9 +1,10 @@
 """Model bundle, the toy model and the stand-in text encoder.
 
-Port of `comfystereo_tpu/diffusion/models.py` but for its gated CLIP loader:
-`LATENT_SCALE`, the `DiffusionModel` bundle the pipelines consume,
-`HashTextEncoder`, and the small random-weight model that wires the whole
-stack (`LatentUNet`, `SimpleVAE`, `make_toy_model`). The bundle's apply
+Port of `comfystereo_tpu/diffusion/models.py`: `LATENT_SCALE`, the
+`DiffusionModel` bundle the pipelines consume, `HashTextEncoder`, the gated
+transformers CLIP loader (`load_hf_text_encoder`), and the small
+random-weight model that wires the whole stack (`LatentUNet`, `SimpleVAE`,
+`make_toy_model`). The bundle's apply
 functions close over `nn.Module`s, so they take no parameter argument (the
 JAX bundle's take a parameter tree).
 
@@ -18,12 +19,13 @@ from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Callable, Dict, Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.caching import EmbeddingCache
 from .attention import AttentionMode, bn_attention
 from .sd_unet import GroupNorm, LayerNorm
 
@@ -240,27 +242,49 @@ class SimpleVAE(nn.Module):
         return self.decode(self.encode(img_nchw))
 
 
-class HashTextEncoder:
+class HashTextEncoder(EmbeddingCache):
     """Deterministic prompt -> [1, 77, dim] embedding with no model: a
-    stand-in with the text encoder's interface until the CLIP port lands.
+    stand-in with the text encoder's interface for bundles without a CLIP
+    (seeded random weights, a directory without text_encoder/), cached per
+    prompt (`EmbeddingCache`).
     The seed is a stable hash of the text (crc32), so a prompt gives the
     same embedding in every process; its values are not the JAX encoder's,
     which come from `jax.random`."""
 
     def __init__(self, dim: int = 64, max_length: int = 77,
                  device: Optional[torch.device] = None):
+        super().__init__()
         self.dim = dim
         self.max_length = max_length
         self.device = torch.device("cpu") if device is None else torch.device(device)
-        self._cache: Dict[str, torch.Tensor] = {}
 
-    def __call__(self, text: str) -> torch.Tensor:
-        if text not in self._cache:
-            seed = zlib.crc32(("comfystereo\x00" + text).encode("utf-8"))
-            gen = torch.Generator().manual_seed(seed)
-            emb = torch.randn((1, self.max_length, self.dim), generator=gen) * 0.02
-            self._cache[text] = emb.to(self.device)
-        return self._cache[text]
+    def _encode(self, text: str) -> torch.Tensor:
+        seed = zlib.crc32(("comfystereo\x00" + text).encode("utf-8"))
+        gen = torch.Generator().manual_seed(seed)
+        emb = torch.randn((1, self.max_length, self.dim), generator=gen) * 0.02
+        return emb.to(self.device)
+
+
+def load_hf_text_encoder(model_id: str = "openai/clip-vit-base-patch32", device=None):
+    """Prompt -> float32 [1, 77, hidden] through transformers' CLIP text
+    model (torch), on `device` (None means CUDA). Gated: needs `transformers`
+    and the model in the local cache or at a local path."""
+    from transformers import CLIPTextModel, CLIPTokenizer  # gated import
+
+    from ..device import resolve_device
+
+    dev = resolve_device(device)
+    tokenizer = CLIPTokenizer.from_pretrained(model_id)
+    model = CLIPTextModel.from_pretrained(model_id).to(dev).eval()
+
+    @torch.no_grad()
+    def encode(text: str) -> torch.Tensor:
+        tokens = tokenizer([text], padding="max_length",
+                           max_length=tokenizer.model_max_length,
+                           truncation=True, return_tensors="pt")
+        return model(tokens.input_ids.to(dev)).last_hidden_state.float()
+
+    return encode
 
 
 @dataclasses.dataclass

@@ -2,15 +2,17 @@
 
 The public contract (`INPUT_TYPES`, `RETURN_TYPES`, `RETURN_NAMES`,
 `FUNCTION`, `CATEGORY`) is that of `comfystereo_tpu/nodes/stereodiffusion.py`.
-Both modes are ported, given a model bundle (`diffusion.build_sd_model`,
-`diffusion.make_toy_model`, or anything with `unet_apply`), and run at the
-model's square sample size, with both eyes resized back to the input's
-size afterwards. Fast (Warp + Inpaint), the default, runs all frames
-batched with per-frame seeds seed + frame_idx; Standard (DDIM) runs the
-first frame through `text2stereo` (DDIM inversion, null-text optimisation
-with 10 inner steps, the stereo denoising loop). The model resolution from
-a connected ComfyUI model, a `model_id` or the offline toy model raises
-`NotImplementedError` naming the ROADMAP item that ports it.
+The model resolves as the JAX node resolves it (`_resolve_model`): a
+ready-made bundle, connected ComfyUI/torch modules (their weights carried
+into the port's SD modules), a `model_id` (a local diffusers directory or a
+hub id through `diffusion.model_loader`, then the diffusers adapter), or,
+loudly, the offline toy model. Fast mode loads `inpaint_model_id` in bf16,
+Standard mode `model_id` in float32. Both modes run at the model's square
+sample size, with both eyes resized back to the input's size afterwards.
+Fast (Warp + Inpaint), the default, runs all frames batched with per-frame
+seeds seed + frame_idx; Standard (DDIM) runs the first frame through
+`text2stereo` (DDIM inversion, null-text optimisation with 10 inner steps,
+the stereo denoising loop).
 """
 from __future__ import annotations
 
@@ -18,9 +20,16 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, as_float_tensor, resolve_device
+from ..diffusion import make_toy_model
 from ..diffusion.sd_pipeline import resize_bilinear, text2stereo, warp_inpaint
+from ..utils.caching import get_or_load_model
 
 PIPELINE_MODES = ("Standard (DDIM)", "Fast (Warp + Inpaint)")
+# What a model that is absent or unusable raises on the way through the
+# loader and the diffusers adapter: the node then falls back to the toy.
+# Device errors (a card out of memory, a launch failure) are not among them
+# and propagate.
+_UNLOADABLE = (ImportError, OSError, ValueError, KeyError)
 
 
 def _resize_to(arr: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -32,6 +41,66 @@ def _resize_to(arr: torch.Tensor, h: int, w: int) -> torch.Tensor:
     x = arr.reshape(b, hh, ww, -1).permute(0, 3, 1, 2)
     x = resize_bilinear(x, h, w)
     return x.permute(0, 2, 3, 1).reshape((b, h, w) + tuple(arr.shape[3:]))
+
+
+def _default_model(dev: torch.device):
+    """The offline toy model at 64x64, built once per device (the port's
+    model cache)."""
+    return get_or_load_model(("toy", str(dev)),
+                             lambda: make_toy_model(image_size=64, device=dev))
+
+
+def _resolve_model(model=None, clip=None, vae=None, model_id="",
+                   pipeline_mode="Fast (Warp + Inpaint)", device: DeviceLike = None):
+    """The model bundle on `device` (None means CUDA), in the JAX node's order:
+
+    1. an already-built bundle (duck-typed: has unet_apply);
+    2. connected ComfyUI/torch MODEL + CLIP + VAE (`from_torch_modules`);
+    3. a model_id: the port's loader (Fast mode: `load_inpainting_model`,
+       bf16; Standard: `load_sd_model` with ddim, float32), then the
+       diffusers adapter;
+    4. the offline toy model, with a loud banner and the attempt trail when
+       a model_id could not be loaded (a missing or unusable checkpoint,
+       `_UNLOADABLE`; any other error, a device's included, propagates).
+    """
+    if model is not None and hasattr(model, "unet_apply"):
+        return model
+    dev = resolve_device(device)
+    if model is not None:
+        from ..diffusion.adapters import from_torch_modules
+
+        unet = getattr(getattr(model, "model", model), "diffusion_model", model)
+        tokenizer = getattr(clip, "tokenizer", clip)
+        text_enc = getattr(clip, "cond_stage_model", clip)
+        return from_torch_modules(unet, vae, tokenizer, text_enc, device=dev)
+    if model_id:
+        from ..diffusion import model_loader
+        from ..diffusion.adapters import from_diffusers
+
+        errors = []
+        try:
+            if pipeline_mode == "Standard (DDIM)":
+                return model_loader.load_sd_model(model_id, "ddim", device=dev)
+            return model_loader.load_inpainting_model(model_id, device=dev)
+        except model_loader.ModelUnavailableError as e:
+            errors.extend(e.attempts)
+        except _UNLOADABLE as e:
+            errors.append(f"native port: {type(e).__name__}: {e}")
+        try:
+            return from_diffusers(model_id, device=dev)
+        except _UNLOADABLE as e:
+            errors.append(f"diffusers adapter: {type(e).__name__}: {e}")
+        # Loud fallback: the attempt trail is printed, so a toy-model render
+        # cannot pass for Stable Diffusion output.
+        print("=" * 70)
+        print(f"[comfystereo-tpu] WARNING: model '{model_id}' could not be "
+              "loaded — FALLING BACK TO THE OFFLINE TOY MODEL.")
+        print("[comfystereo-tpu] Outputs will NOT be Stable Diffusion "
+              "quality. Attempt trail:")
+        for err in errors:
+            print(f"[comfystereo-tpu]   - {err}")
+        print("=" * 70)
+    return _default_model(dev)
 
 
 class StereoDiffusionNode:
@@ -126,14 +195,12 @@ class StereoDiffusionNode:
                         vae=None, model_id="", inpaint_model_id="",
                         prompt="", device: DeviceLike = None):
         """Returns (stereo_pair [B,H,2W,3], left [B,H,W,3], right [B,H,W,3])
-        as CPU float32 tensors. `device=None` means CUDA; the model bundle
-        must live on the same device."""
-        if model is None or not hasattr(model, "unet_apply"):
-            raise NotImplementedError(
-                "StereoDiffusion model resolution (connected ComfyUI models, "
-                "model ids, the offline toy model) is not ported yet: ROADMAP "
-                "queue 1 item 13b; pass a bundle from diffusion.build_sd_model")
+        as CPU float32 tensors. `device=None` means CUDA; a given bundle must
+        live on the same device, and a resolved model is loaded there."""
         dev = resolve_device(device)
+        # Fast mode prefers the inpainting checkpoint.
+        wanted_id = inpaint_model_id if pipeline_mode != "Standard (DDIM)" else model_id
+        model = _resolve_model(model, clip, vae, wanted_id, pipeline_mode, device=dev)
         if torch.device(model.device) != dev:
             raise ValueError(f"model bundle on {model.device}, node asked for {dev}")
         img = as_float_tensor(image, dev)

@@ -5,6 +5,8 @@ absent. On the card run them with `python -m pytest tests/test_torch_port_cuda.p
 -m cuda -q`. chip_smoke.py makes the same comparisons at the main path's
 full 1080p shapes.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -664,3 +666,65 @@ def test_null_text_gradient_through_kernel_tiny_bf16(dev):
     rel = float((g_k - g_p).norm() / g_p.norm())
     assert rel <= 0.05
     assert float((g_k - g_cut).norm() / g_k.norm()) > rel
+
+
+def test_tiny_checkpoint_dir_on_card_matches_cpu(dev, tmp_path, monkeypatch):
+    """A TINY diffusers directory (float16 files) loaded in float32 on the
+    card and on the CPU: text embeddings, one UNet call, VAE encode and
+    decode, and the w8 model's eps (min_elems 1024, q and scale bit-equal)
+    within 1e-4. TF32 off, as chip_smoke.py runs."""
+    from comfystereo_tpu_torch.diffusion import (TINY_SD_UNET_CONFIG, TINY_SD_VAE_CONFIG,
+                                                 TINY_TEXT_CONFIG, build_sd_model, porting,
+                                                 quantize)
+    from torch_checkpoint import toy_vocab, write_sd_dir
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    states, _, _ = write_sd_dir(str(tmp_path), TINY_SD_UNET_CONFIG, TINY_SD_VAE_CONFIG,
+                                TINY_TEXT_CONFIG, toy_vocab(), seed=2)
+    gen = torch.Generator().manual_seed(0)
+    lat, img = torch.randn(2, 4, 16, 16, generator=gen), torch.rand(1, 3, 32, 32, generator=gen)
+    ctx = torch.randn(2, 77, 64, generator=gen)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        m = porting.load_sd_from_diffusers_dir(str(tmp_path), TINY_SD_UNET_CONFIG,
+                                               TINY_SD_VAE_CONFIG, dtype=torch.float32, device=d)
+        z = m.vae_encode(img.to(d) * 2 - 1)
+        w8 = build_sd_model(TINY_SD_UNET_CONFIG, TINY_SD_VAE_CONFIG, device=d,
+                            unet_state=states["unet"])
+        quantize.quantize_module_(w8.unet, torch.float32, min_elems=1024)
+        qs = [x.q.cpu() for x in w8.unet.modules() if isinstance(x, quantize.W8Linear)]
+        outs.append(([m.text_encode(p) for p in ("low", "lower lower", "")]
+                     + [m.unet_apply(lat.to(d), 500, ctx.to(d)), z, m.vae_decode(z),
+                        w8.unet_apply(lat.to(d), 500, ctx.to(d))], qs))
+    for a, b in zip(outs[0][0], outs[1][0]):
+        assert a.device.type == "cuda"
+        assert float((a.cpu() - b).abs().max()) <= 1e-4
+    assert len(outs[0][1]) > 10 and all(torch.equal(a, b) for a, b in zip(*[o[1] for o in outs]))
+
+
+@pytest.mark.parametrize("shape", [(320, 1280), (640, 320, 3, 3)])
+def test_w8_layer_on_card_matches_cpu(dev, shape):
+    """A bf16 layer quantised on the card has the CPU's q and scale bit for
+    bit (the division by 127 is a true division on both), the same
+    dequantised weight, and an output within bf16 rounding of the CPU's."""
+    from comfystereo_tpu_torch.diffusion import quantize
+    gen = torch.Generator().manual_seed(1)
+    w = torch.randn(shape, generator=gen) * torch.rand(
+        (shape[0],) + (1,) * (len(shape) - 1), generator=gen)
+    layer = torch.nn.Linear(shape[1], shape[0]) if len(shape) == 2 else \
+        torch.nn.Conv2d(shape[1], shape[0], 3, padding=1)
+    with torch.no_grad():
+        layer.weight.copy_(w)
+    layer = layer.bfloat16()
+    kind = quantize.W8Linear if len(shape) == 2 else quantize.W8Conv2d
+    cpu = kind(layer, torch.bfloat16)
+    card = kind(copy.deepcopy(layer).to(dev), torch.bfloat16)
+    assert torch.equal(card.q.cpu(), cpu.q)
+    assert torch.equal(card.scale.cpu().view(torch.int32), cpu.scale.view(torch.int32))
+    assert torch.equal(card.weight.cpu(), cpu.weight)
+    x = torch.randn((4, shape[1]) if len(shape) == 2 else (1, shape[1], 16, 16),
+                    generator=gen).bfloat16()
+    with torch.no_grad():
+        want = cpu(x).float()
+        rel = float((card(x.to(dev)).float().cpu() - want).norm() / want.norm())
+    assert rel <= 1e-2

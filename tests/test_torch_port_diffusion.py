@@ -19,6 +19,7 @@ encoder) its draws are fed to the port. Tolerances:
   values (measured 6e-8) and no mask bit flipped at the 0.1 threshold.
 """
 import dataclasses
+import sys
 
 import numpy as np
 import pytest
@@ -372,11 +373,22 @@ def test_stereodiffusion_node_fast_matches_jax(models, monkeypatch):
         np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-4)
 
 
-def test_node_raises_for_unported_modes(models):
-    img, dep = _frames(64, 64, n=1)
-    node = tnode.StereoDiffusionNode()
-    with pytest.raises(NotImplementedError, match="model resolution"):
-        node.generate_stereo(img, dep, device="cpu", model_id="runwayml/stable-diffusion-v1-5")
+def test_node_raises_for_unported_modes(monkeypatch, capsys):
+    """Model resolution is ported (the NotImplementedError it once raised is
+    gone): a model_id on no disk, offline and without a hub package, falls
+    back loudly to the toy model on the CPU, which runs; the node's contract
+    attributes are JAX's."""
+    monkeypatch.setitem(sys.modules, "huggingface_hub", None)
+    monkeypatch.setenv("COMFYSTEREO_OFFLINE", "1")
+    img, dep = _frames(48, 40, n=1)
+    pair, left, right = tnode.StereoDiffusionNode().generate_stereo(
+        img, dep, device="cpu", pipeline_mode="Standard (DDIM)", model_id="org/not-on-disk",
+        num_inference_steps=2, null_text_optimization=False)
+    out = capsys.readouterr().out
+    assert "FALLING BACK TO THE OFFLINE TOY MODEL" in out and "org/not-on-disk" in out
+    assert "huggingface_hub missing" in out
+    assert tuple(pair.shape) == (1, 48, 80, 3) and bool(torch.isfinite(pair).all())
+    assert tnode._default_model(torch.device("cpu")).sample_size == 64
     assert tnode.StereoDiffusionNode.INPUT_TYPES() == jnode.StereoDiffusionNode.INPUT_TYPES()
     for attr in ("RETURN_TYPES", "RETURN_NAMES", "FUNCTION", "CATEGORY"):
         assert getattr(tnode.StereoDiffusionNode, attr) == getattr(

@@ -73,6 +73,19 @@ any failure ends the run with a non-zero exit code:
    float16 weights, the w8 model's CFG call within 0.05 of it (flash 10),
    Standard mode with `model_id` (5 steps, no null-text; float32, flash 0),
    and an id on no disk falling back loudly to the toy model on the card;
+   then stereo_pipeline on sharded chunks (`parallel/`) at 1080p B=12: the
+   default config packed left-right and top-bottom on a "data" mesh over
+   every local card and on a (2, 2) ("data", "seq") mesh on cuda:0 (the
+   row path: halo rows and per-frame extrema exchanged), and naive and
+   polylines_sharp on the (2, 2) mesh, each with the counters set to 0
+   just before and read just after: each kernel launched once per block
+   as often as on the unsharded chunk (gpu_warp: warp 2 and distance 1
+   per block), every output bit-equal to the unsharded chunk;
+   `graft_entry.dryrun_multichip(4, device="cuda:0")` (sharded gpu_warp
+   and naive bit-equal to one device, a data-parallel null-text step and
+   TINY UNet forward against one device's); and the VR nodes on the card's
+   gpu_warp output (no headset: the image node says the viewer is
+   unavailable and returns its card input; the status names the card);
 4. card vs CPU: the division by a scalar each way (the share of values
    that differ from the CPU's; `device.true_divide` must give the CPU's
    bits) and pow at a few exponents; the port's stereo_pipeline on 2
@@ -89,6 +102,9 @@ any failure ends the run with a non-zero exit code:
    TINY checkpoint directory read by the port's own safetensors parser and
    loaded in float32 on the card and on the CPU: text embeddings, a UNet
    call, VAE encode and decode and the w8 TINY model's eps within 1e-4;
+   the backward-warp family (`ops/backward_warp.py`) on the first two
+   frames of the 1080p chunk, card against CPU (masks bit-equal, colours
+   within BW_ATOL);
 5. times with CUDA events (warm-up, then >= 10 iterations, fewer for the
    slowest plain versions): each kernel and its plain version at the main
    path's shapes beside the bound (and torch.gather beside the gather; the
@@ -118,7 +134,9 @@ any failure ends the run with a non-zero exit code:
    spills and shared memory from `-Xptxas -v`, for the gather of a colour plane its
    bound, and for the polylines kernels their recounted operations beside
    their previous design's count. The polylines kernels are timed through
-   the fused entries their routes launch.
+   the fused entries their routes launch. Also the sharded gpu_warp chunk
+   beside the unsharded one in turns, on both meshes, and the backward-warp
+   family's ms per 1080p B=12 chunk.
 
 `--kernel-times` only builds and times the flash kernel (beside
 scaled_dot_product_attention), the gather (beside torch.gather), both
@@ -2678,6 +2696,191 @@ def polylines_kernel_times(dev):
     return out
 
 
+# --- sharding, the backward-warp family, the dry run, the VR nodes ----------
+
+SHARD_MODES = ("left-right", "top-bottom")
+# Card against CPU tolerance of the backward-warp family's colours (their
+# masks are bit-equal).
+BW_ATOL = 1e-5
+
+
+def _sharded_outputs_equal(got, want) -> bool:
+    import torch
+    return (all(torch.equal(g.gather(), w) for g, w in zip(got["stereo"], want["stereo"]))
+            and all(torch.equal(got[k].gather(), want[k])
+                    for k in ("mask", "left_depth", "right_depth")))
+
+
+def _chunk_ms(fn) -> float:
+    """ms per call by CUDA events on one card; with several cards, the host
+    clock between synchronisations of all of them (a mesh's blocks run on
+    every card)."""
+    import torch
+    if torch.cuda.device_count() == 1:
+        return time_ms(fn)
+    for _ in range(2):
+        fn()
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        fn()
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    return (time.perf_counter() - t0) * 1e3 / 10
+
+
+def phase_sharded(dev, smi: str, n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
+    """stereo_pipeline on sharded chunks at 1080p B=12: the default config
+    (gpu_warp, blur on) on a "data" mesh over every local card and on a
+    (2, 2) ("data", "seq") mesh on one card, packed left-right and
+    top-bottom; every output bit-equal to the unsharded chunk, each kernel
+    launched once per block as often as on the unsharded chunk (warp 2,
+    distance 1); then naive and polylines_sharp on the (2, 2) mesh. Times
+    the default chunk sharded beside unsharded, in turns."""
+    import numpy as np
+    import torch
+    from comfystereo_tpu_torch import StereoConfig, stereo_pipeline
+    from comfystereo_tpu_torch.parallel import make_mesh, shard_batch
+
+    imgs, deps = fixture_frames(n, h, w)
+    img_d = torch.from_numpy(imgs.astype(np.float32) / 255.0).to(dev)
+    dep_d = torch.from_numpy(deps.astype(np.float32) / 255.0).to(dev)
+    meshes = {"data x all cards": (make_mesh(axes=("data",)), False),
+              "(2, 2) on cuda:0": (make_mesh(4, axes=("data", "seq"), shape=(2, 2),
+                                             device="cuda:0"), True)}
+    report = {}
+    cases = [("gpu_warp", name) for name in meshes] + [
+        (fill, "(2, 2) on cuda:0") for fill in ("naive", "polylines_sharp")]
+    for fill, name in cases:
+        mesh, rows = meshes[name]
+        cfg = StereoConfig(fill_technique=fill, modes=SHARD_MODES)
+        reset_launches()
+        want = stereo_pipeline(img_d, dep_d, cfg)
+        sync()
+        base = read_launches()
+        s_img, s_dep = shard_batch(img_d, dep_d, mesh, rows=rows)
+        blocks = len(s_dep.blocks)
+        reset_launches()
+        got = stereo_pipeline(s_img, s_dep, cfg)
+        sync()
+        launches = read_launches()
+        expect = {k: v * blocks for k, v in base.items()}
+        if launches != expect:
+            raise AssertionError(f"sharded {fill} on {name}: launches {launches}, "
+                                 f"expected {expect}")
+        if not _sharded_outputs_equal(got, want):
+            raise AssertionError(f"sharded {fill} on {name} differs from the unsharded chunk")
+        entry = {"blocks": blocks, "launches": launches, "bit_equal": True}
+        if fill == "gpu_warp":
+            cfg1 = StereoConfig()
+            unsharded = lambda: stereo_pipeline(img_d, dep_d, cfg1)  # noqa: E731
+            sharded = lambda: stereo_pipeline(s_img, s_dep, cfg1)  # noqa: E731
+            turns = [_chunk_ms(f) for f in (unsharded, sharded, sharded, unsharded)]
+            entry.update(unsharded_ms=[turns[0], turns[3]], sharded_ms=[turns[1], turns[2]])
+            log(f"  sharded gpu_warp 1080p B={n} on {name}: {blocks} blocks, chunk "
+                f"{turns[1]:.3f} / {turns[2]:.3f} ms against unsharded {turns[0]:.3f} / "
+                f"{turns[3]:.3f} ms (in turns) [{smi}]")
+        log(f"phase 3 sharded {fill} on {name}: {blocks} blocks, launches {launches}, "
+            f"{'left-right and top-bottom, ' if rows or fill == 'gpu_warp' else ''}"
+            "every output bit-equal to the unsharded chunk")
+        report[f"{fill} {name}"] = entry
+        del got, want, s_img, s_dep
+    return report
+
+
+def _backward_warp_family(image, depth255):
+    """The six backward-warp functions on one chunk (the node's default
+    exponent and convergence, divergence 4.5% of the width)."""
+    from comfystereo_tpu_torch.device import true_divide
+    from comfystereo_tpu_torch.ops import backward_warp as bw
+    w = image.shape[2]
+    args = (DIV_PCT / 100.0 * w, 0.0, 2.0, 0.5)
+    out = {"backward_warp": bw.backward_warp(image, depth255, *args)}
+    for mode in ("border", "zeros", "reflection"):
+        out[f"padded {mode}"], out[f"valid {mode}"] = bw.backward_warp_padded(
+            image, depth255, *args, fill_mode=mode)
+    out["gap"] = bw.forward_gap_mask(depth255, *args)
+    out["warp_and_fill"], _ = bw.warp_and_fill(image, depth255, *args)
+    depth01 = true_divide(depth255, 255.0)
+    src = bw._cols(w, depth255) - depth01 * args[0]
+    out["disocclusions"] = bw.detect_disocclusions(depth01, src)
+    out["interpolate_fill"] = bw.interpolate_fill(image, out["gap"])
+    return out
+
+
+def phase_backward_warp(dev, smi: str, n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
+    """The backward-warp family on the 1080p chunk: card against CPU on its
+    first two frames (masks bit-equal, colours within BW_ATOL), and each
+    function's ms per 12-frame chunk on the card."""
+    import numpy as np
+    import torch
+    from comfystereo_tpu_torch.ops import backward_warp as bw
+    imgs, deps = fixture_frames(n, h, w)
+    image = torch.from_numpy(imgs.astype(np.float32) / 255.0)
+    depth = torch.from_numpy(deps.astype(np.float32))
+    cpu = _backward_warp_family(image[:2], depth[:2])
+    img_d, dep_d = image.to(dev), depth.to(dev)
+    card = _backward_warp_family(img_d[:2], dep_d[:2])
+    errs = {}
+    for k, want in cpu.items():
+        got = card[k].cpu()
+        if want.dtype == torch.bool:
+            errs[k] = int((got != want).sum())
+            if errs[k]:
+                raise AssertionError(f"backward warp {k}: {errs[k]} mask values differ")
+        else:
+            errs[k] = float((got - want).abs().max())
+            if errs[k] > BW_ATOL:
+                raise AssertionError(f"backward warp {k}: card vs CPU {errs[k]}")
+    args = (DIV_PCT / 100.0 * w, 0.0, 2.0, 0.5)
+    gap = bw.forward_gap_mask(dep_d, *args)
+    fns = {"backward_warp": lambda: bw.backward_warp(img_d, dep_d, *args),
+           "backward_warp_padded reflection": lambda: bw.backward_warp_padded(
+               img_d, dep_d, *args, fill_mode="reflection"),
+           "forward_gap_mask": lambda: bw.forward_gap_mask(dep_d, *args),
+           "warp_and_fill": lambda: bw.warp_and_fill(img_d, dep_d, *args),
+           "interpolate_fill": lambda: bw.interpolate_fill(img_d, gap)}
+    times = {k: time_ms(f, iters=5, warmup=1) for k, f in fns.items()}
+    log("phase 4 backward-warp family card vs CPU on 2 frames of 1080p: " + ", ".join(
+        f"{k} {v:.3g}" for k, v in errs.items()) + f" (bound {BW_ATOL}, masks 0)")
+    log(f"phase 5 backward-warp family ms per 1080p B={n} chunk: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in times.items()) + f" [{smi}]")
+    return {"card_vs_cpu": errs, "ms_per_chunk": times}
+
+
+def phase_dryrun_and_vr_nodes(dev, smi: str):
+    """graft_entry.dryrun_multichip(4) on cuda:0, and the VR nodes on the
+    card's gpu_warp output: with no headset the image node says the viewer
+    is unavailable and returns its input, on the card."""
+    import io
+    import numpy as np
+    import torch
+    from comfystereo_tpu_torch import StereoConfig, graft_entry, stereo_pipeline
+    from comfystereo_tpu_torch.nodes.native_nodes import (NativeStereoImageViewer,
+                                                          NativeVRStatus)
+    t0 = time.perf_counter()
+    report = graft_entry.dryrun_multichip(4, device="cuda:0")
+    log(f"phase 3 graft_entry.dryrun_multichip(4, device='cuda:0') in "
+        f"{time.perf_counter() - t0:.1f} s: {report}")
+    imgs, deps = fixture_frames(2, 270, 480)
+    out = stereo_pipeline(torch.from_numpy(imgs.astype(np.float32) / 255.0).to(dev),
+                          torch.from_numpy(deps.astype(np.float32)).to(dev),
+                          StereoConfig())["stereo"][0]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        (passed,) = NativeStereoImageViewer().view_stereo_native(out)
+        (status,) = NativeVRStatus().get_status()
+    if passed is not out or passed.device.type != "cuda":
+        raise AssertionError("the image viewer node did not return its card input")
+    if "VR viewer unavailable" not in buf.getvalue() or "CUDA device:  cuda:" not in status:
+        raise AssertionError(f"VR nodes: {buf.getvalue()!r}")
+    cuda_line = [ln for ln in status.splitlines() if ln.startswith("CUDA device")][0]
+    log(f"phase 3 VR nodes on the card's output: image node passed its input through "
+        f"({passed.device}); status: {cuda_line}")
+    return dict(report, vr_status_cuda=cuda_line)
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2710,6 +2913,9 @@ def main() -> int:
     smi, name = phase_device()
     errs = phase_kernels(dev)
     launches, _ = phase_main_path(dev)
+    sharded = phase_sharded(dev, smi)
+    dryrun = phase_dryrun_and_vr_nodes(dev, smi)
+    backward = phase_backward_warp(dev, smi)
     ck = write_checkpoints()
     sd = phase_diffusion(dev)
     std = phase_standard(dev)
@@ -2743,6 +2949,9 @@ def main() -> int:
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
+    pipeline["sharded"] = sharded
+    pipeline["dryrun_multichip_4_cuda0"] = dryrun
+    pipeline["backward_warp"] = backward
     log("pipeline " + json.dumps(pipeline))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -30,6 +30,17 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def launch(fn, *args, device: torch.device) -> int:
+    """fn(*args, stream): a C entry called with `device` the current CUDA
+    device and `stream` PyTorch's current stream there; returns its error
+    code. The entries launch on the current device, and PyTorch's default
+    stream is the null stream, which names the current device's: without
+    the guard a tensor on another card than the current one would be
+    worked on from the wrong card, unordered with its own stream."""
+    with torch.cuda.device(device):
+        return fn(*args, stream_ptr(device))
+
+
 def point_x(coord: torch.Tensor, sep_px: float) -> torch.Tensor:
     """Point positions x = col + 0.5 + coord + sep_px of [..., W] signed
     offsets, added in that order in float32 (sep_px rounded to float32), as

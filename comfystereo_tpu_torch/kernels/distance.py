@@ -31,7 +31,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ._common import check_rows, pow_mode, stream_ptr
+from ._common import check_rows, launch, pow_mode
 from ..device import true_divide
 
 _LARGE = 1e9
@@ -120,7 +120,7 @@ def _launch(entry: str, before, n: int, w: int, device, after=()):
     out_a = torch.empty((n, w), dtype=torch.float32, device=device)
     out_b = torch.empty_like(out_a)
     fn = getattr(_build.library("distance"), entry)
-    err = fn(*before, out_a.data_ptr(), out_b.data_ptr(), n, w, *after, stream_ptr(device))
+    err = launch(fn, *before, out_a.data_ptr(), out_b.data_ptr(), n, w, *after, device=device)
     _build.check(err, f"{entry} kernel launch")
     LAUNCHES += 1
     return out_a, out_b

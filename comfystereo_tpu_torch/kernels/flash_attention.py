@@ -119,9 +119,10 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = tma_head_dim(d)
     q, k, v = (pad_head_dim(t, dk) for t in (q, k, v))
     out = torch.empty_like(q)
-    err = _build.library("flash_attention").cs_flash_attention_bf16(
+    err = _common.launch(
+        _build.library("flash_attention").cs_flash_attention_bf16,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, nq, nk, dk,
-        float(scale), _common.stream_ptr(q.device))
+        float(scale), device=q.device)
     _build.check(err, "flash_attention kernel launch")
     LAUNCHES += 1
     return out if dk == d else out[..., :d].contiguous()

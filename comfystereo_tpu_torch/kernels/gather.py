@@ -114,9 +114,10 @@ def bounded_take_along_w(values: torch.Tensor, idx: torch.Tensor,
     idx = idx.contiguous()
     rows = math.prod(lead_v)
     out = torch.empty(lead_v + (n,), dtype=values.dtype, device=values.device)
-    err = _build.library("gather").cs_gather_rows_b32(
+    err = _common.launch(
+        _build.library("gather").cs_gather_rows_b32,
         values.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, m, n,
-        rows_map[0], rows_map[1], _common.stream_ptr(values.device))
+        rows_map[0], rows_map[1], device=values.device)
     _build.check(err, "bounded_take_along_w kernel launch")
     LAUNCHES += 1
     return out

@@ -286,9 +286,10 @@ def _launch(name: str, entry: str, rows, colors: torch.Tensor, sharp: bool, samp
 
     n, w = colors.shape[:2]
     out = torch.empty_like(colors)
-    err = getattr(_build.library("polylines"), entry)(
+    err = _common.launch(
+        getattr(_build.library("polylines"), entry),
         *rows, colors.data_ptr(), out.data_ptr(), n, w, c, int(bool(sharp)), int(samples),
-        int(k_candidates), int(max_disp), _common.stream_ptr(colors.device))
+        int(k_candidates), int(max_disp), device=colors.device)
     _build.check(err, f"{name} kernel launch")
     LAUNCHES += 1
     return out

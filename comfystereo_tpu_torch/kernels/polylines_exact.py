@@ -298,10 +298,11 @@ def _launch(name: str, entry: str, rows, colors: torch.Tensor, sharp: bool,
 
     n, w = colors.shape[:2]
     out = torch.empty_like(colors)
-    err = getattr(_build.library("polylines_exact"), entry)(
+    err = _common.launch(
+        getattr(_build.library("polylines_exact"), entry),
         *rows, colors.data_ptr(), out.data_ptr(), n, w, c, int(bool(sharp)), int(max_pieces),
         int(max_disp), int(list_cap), None if overflow is None else overflow.data_ptr(),
-        _common.stream_ptr(colors.device))
+        device=colors.device)
     _build.check(err, f"{name} kernel launch")
     LAUNCHES += 1
     return out

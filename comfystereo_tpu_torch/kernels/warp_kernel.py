@@ -220,8 +220,8 @@ def _launch(entry: str, before, image: torch.Tensor, after):
     gap = torch.empty((n, w), dtype=torch.bool, device=image.device)
     suffix = "f32" if image.dtype == torch.float32 else "bf16"
     fn = getattr(_build.library("warp_kernel"), f"{entry}_{suffix}")
-    err = fn(*before, image.data_ptr(), out.data_ptr(), gap.data_ptr(), n, w, c, *after,
-             _common.stream_ptr(image.device))
+    err = _common.launch(fn, *before, image.data_ptr(), out.data_ptr(), gap.data_ptr(),
+                         n, w, c, *after, device=image.device)
     _build.check(err, f"{entry} kernel launch")
     LAUNCHES += 1
     return out, gap

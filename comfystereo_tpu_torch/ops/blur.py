@@ -14,8 +14,9 @@ the weights in one pass (`kernels/distance.py:edge_weights_fused`); its
 plain version's pieces, `sobel_x`, `edge_masks` and `distance_weight`, live
 there too and are used here.
 
-Only the blur on the main path is ported; `gaussian_blur`,
-`edge_selective_blur` and `direction_aware_blur` wait for the fills.
+The side blurs of the JAX package, which no pipeline path calls, are here
+too in its forms: `gaussian_blur` (reference blur_depth_map),
+`edge_selective_blur` and `direction_aware_blur`.
 """
 from __future__ import annotations
 
@@ -115,3 +116,61 @@ def directional_motion_blur(depth: torch.Tensor, blur_strength: float,
     left = wl * blurred + (1.0 - wl) * depth
     right = wr * blurred + (1.0 - wr) * depth
     return left, right
+
+
+def gaussian_blur(depth: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Separable Gaussian blur, radius = 3*sigma, edge-replicate padding
+    (reference blur_depth_map, :1253-1281). [..., H, W]. The kernel taps are
+    float32, normalised by their sum, and added in ascending tap order."""
+    if sigma <= 0:
+        return depth
+    radius = int(3 * sigma)
+    x = torch.arange(-radius, radius + 1, dtype=torch.float32, device=depth.device)
+    kernel = torch.exp(true_divide(-(x * x), _f32(2.0 * sigma * sigma)))
+    kernel = kernel / torch.sum(kernel)
+
+    def conv_axis(v: torch.Tensor, dim: int) -> torch.Tensor:
+        # correlation by stacked slices (the symmetric kernel makes convolve
+        # == correlate)
+        n = v.shape[dim]
+        vp = _edge_pad(v, dim, radius, radius)
+        acc = torch.zeros_like(v)
+        for i in range(2 * radius + 1):
+            acc = acc + kernel[i] * vp.narrow(dim, i, n)
+        return acc
+
+    return conv_axis(conv_axis(depth.float(), -1), -2)
+
+
+def edge_selective_blur(depth: torch.Tensor, sigma: float,
+                        edge_threshold: float) -> torch.Tensor:
+    """Direction-agnostic edge-selective blur: full Sobel magnitude weight
+    blended between original and Gaussian-blurred depth (reference
+    edge_selective_blur_depth_map, :1283-1309)."""
+    gx = sobel_x(depth)
+    gy = sobel_x(depth.transpose(-1, -2)).transpose(-1, -2)
+    mag = torch.sqrt(gx * gx + gy * gy)
+    weight = torch.clamp(true_divide(mag, edge_threshold), max=1.0)
+    blurred = gaussian_blur(depth, sigma)
+    return (1.0 - weight) * depth + weight * blurred
+
+
+def _central_diff_w(depth: torch.Tensor) -> torch.Tensor:
+    dp = _edge_pad(depth, -1, 1, 1)
+    return true_divide(dp[..., 2:] - dp[..., :-2], 2.0)
+
+
+def direction_aware_blur(depth: torch.Tensor, sigma: float, edge_threshold: float,
+                         eye: str) -> torch.Tensor:
+    """One-sided gradient-weighted blur (reference
+    left/right_direction_aware_blur_depth_map, :1311-1344): the left eye
+    blurs rising (dark->light) gradients, the right eye falling ones."""
+    grad = _central_diff_w(depth.float())
+    if eye == "left":
+        weight = torch.where(grad > 0, torch.clamp(true_divide(grad, edge_threshold),
+                                                   max=1.0), 0.0)
+    else:
+        weight = torch.where(grad < 0, torch.clamp(
+            true_divide(torch.abs(grad), edge_threshold), max=1.0), 0.0)
+    blurred = gaussian_blur(depth, sigma)
+    return (1.0 - weight) * depth + weight * blurred

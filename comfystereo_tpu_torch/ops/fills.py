@@ -50,7 +50,8 @@ def _flat_scatter(reduce: str, dest: torch.Tensor, values: torch.Tensor,
                   valid: torch.Tensor, width: int, init) -> torch.Tensor:
     """Scatter `values` to `dest` along the last axis with an amin/amax
     combiner on one flat buffer; invalid lanes go to a dump slot past the
-    end. Deterministic (the combiners are associative and commutative)."""
+    end. Deterministic for amin and amax (associative, commutative
+    combiners); see `scatter_add_w` for the sum."""
     shape = tuple(dest.shape)
     n_rows = math.prod(shape[:-1])
     total = n_rows * width
@@ -71,6 +72,14 @@ def scatter_min_w(dest, values, valid, width: int, init) -> torch.Tensor:
 def scatter_max_w(dest, values, valid, width: int, init) -> torch.Tensor:
     """Per-row maximum of `values` at columns `dest` (`init` where none)."""
     return _flat_scatter("amax", dest, values, valid, width, init)
+
+
+def scatter_add_w(dest, values, valid, width: int) -> torch.Tensor:
+    """Per-row sum of `values` at columns `dest` (0 where none). On the card
+    the adds are atomics in no fixed order; the callers add 1.0s, whose
+    counts are exact integers below 2**24, so the sum does not depend on
+    the order."""
+    return _flat_scatter("sum", dest, values, valid, width, 0)
 
 
 # --------------------------------------------------------------------------

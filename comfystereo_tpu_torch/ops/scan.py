@@ -1,9 +1,8 @@
 """Row-scan primitives along the last axis, batched over leading axes.
 
 The JAX package writes these as associative scans; in PyTorch they are
-`cummax`/`cummin`, over the values or over marked column indices. Only the
-helpers the gpu_warp path, the fills, the polylines and the diffusion
-prefill use are here so far.
+`cummax`/`cummin`, over the values or over marked column indices; the
+batched binary search and the row gather are the JAX package's as they are.
 """
 from __future__ import annotations
 
@@ -86,3 +85,32 @@ def backward_fill(values: Tuple[torch.Tensor, ...], valid: torch.Tensor):
     has = idx < w
     idx = idx.clamp(max=w - 1)  # W -> W-1: the row's last value
     return tuple(v.gather(-1, idx) for v in values), has
+
+
+def searchsorted_rows(sorted_rows: torch.Tensor, queries: torch.Tensor,
+                      side: str = "right") -> torch.Tensor:
+    """Batched searchsorted: each row of `sorted_rows` is non-decreasing.
+
+    sorted_rows: [..., N] (ascending along the last axis); queries: [..., Q]
+    with the same leading shape. Returns int32 insertion indices [..., Q],
+    by the JAX package's vectorised binary search (a fixed bit_length(N - 1)
+    + 1 rounds of gathers that do not freeze converged lanes): in [0, N]
+    up to a row's last value, N + 1 above it, as the JAX code gives (its
+    docstring says N).
+    """
+    n = sorted_rows.shape[-1]
+    nbits = max(1, (n - 1).bit_length() if n > 1 else 1)
+    lo = torch.zeros(queries.shape, dtype=torch.int32, device=queries.device)
+    hi = torch.full(queries.shape, n, dtype=torch.int32, device=queries.device)
+    for _ in range(nbits + 1):
+        mid = torch.div(lo + hi, 2, rounding_mode="floor")
+        v = torch.gather(sorted_rows, -1, torch.clamp(mid, 0, n - 1).long())
+        go_right = (v <= queries) if side == "right" else (v < queries)
+        lo = torch.where(go_right, mid + 1, lo)
+        hi = torch.where(go_right, hi, mid)
+    return lo
+
+
+def gather_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """take_along_axis over the last axis (thin alias for readability)."""
+    return torch.gather(values, -1, idx.long())

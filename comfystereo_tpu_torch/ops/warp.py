@@ -27,13 +27,17 @@ def forward_warp(image: torch.Tensor, depth: torch.Tensor, divergence_px: float,
                  separation_px: float, stereo_offset_exponent: float,
                  convergence_point: float = 0.5,
                  gradient_threshold: float = 1.5,
-                 max_stretch: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+                 max_stretch: int = 8,
+                 depth_range=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward warp one eye.
 
     image: [B, H, W, C] float 0-1 (float32 or bfloat16 colour); depth:
     [B, H, W] (any scale, normalized per image). divergence_px /
-    separation_px: floats (pixels). Returns (warped [B,H,W,C] in the colour
-    dtype, gap_mask [B,H,W] bool, True = disocclusion).
+    separation_px: floats (pixels). depth_range: each image's (min [B], max
+    [B]) float32 to normalise by, where `depth` holds only some of an
+    image's rows (the sharded pipeline); by default each image's own.
+    Returns (warped [B,H,W,C] in the colour dtype, gap_mask [B,H,W] bool,
+    True = disocclusion).
     """
     # Static displacement bound: |offset| <= max(conv, 1-conv)^exp * |div| + |sep|.
     cmax = max(abs(convergence_point), abs(1.0 - convergence_point))
@@ -44,7 +48,10 @@ def forward_warp(image: torch.Tensor, depth: torch.Tensor, divergence_px: float,
         image = image.float()
     b, h, w, c = image.shape
     rows = depth.float().reshape(b * h, w).contiguous()
-    dmin, dmax = torch.aminmax(rows.reshape(b, h * w), dim=-1)
+    if depth_range is None:
+        dmin, dmax = torch.aminmax(rows.reshape(b, h * w), dim=-1)
+    else:
+        dmin, dmax = depth_range
     warped, gap = warp_rows_fused(
         rows, dmin, dmax, image.reshape(b * h, w, c).contiguous(),
         divergence_px=divergence_px, separation_px=separation_px,

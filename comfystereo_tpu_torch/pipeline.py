@@ -35,14 +35,23 @@ def apply_stereo_divergence(image_u8: torch.Tensor, depth: torch.Tensor,
                             fill_technique: str,
                             convergence_point: float = 0.5,
                             polylines_samples: int = 8,
-                            polylines_exact_mode: bool = True) -> torch.Tensor:
+                            polylines_exact_mode: bool = True,
+                            depth_range=None) -> torch.Tensor:
     """CPU-parity single-eye dispatcher (reference :1576-1620).
 
     image_u8: [B,H,W,C] float32 holding uint8 values; depth: [B,H,W] raw.
-    divergence/separation are percentages of image width.
+    divergence/separation are percentages of image width. depth_range:
+    each frame's (min [B], max [B]) to normalise by, where `depth` holds
+    only some of a frame's rows (the sharded pipeline); by default each
+    frame's own.
     """
     w = image_u8.shape[-2]
-    nd = depth_ops.normalize_depth(depth) - convergence_point
+    if depth_range is None:
+        nd = depth_ops.normalize_depth(depth)
+    else:
+        nd = depth_ops.normalize_between(depth.float(), depth_range[0][:, None, None],
+                                         depth_range[1][:, None, None])
+    nd = nd - convergence_point
     divergence_px = (divergence / 100.0) * w
     separation_px = (separation / 100.0) * w
     exp = stereo_offset_exponent
@@ -119,10 +128,11 @@ def _eye_source(image: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
 
 
 def _eye(src: torch.Tensor, eye_d: torch.Tensor, div: float, sign: float,
-         cfg: StereoConfig):
+         cfg: StereoConfig, depth_range=None):
     """One eye (sign +1 left, -1 right): (colour, gap mask) for gpu_warp,
     (colour, None) for the fills. An eye under 0.001% divergence is the
-    source itself."""
+    source itself. depth_range: each frame's depth (min, max) where eye_d
+    holds only some of its rows (`parallel/pipeline.py`)."""
     warp_path = cfg.fill_technique == "gpu_warp"
     if div < 0.001:
         gap = (torch.zeros(eye_d.shape, dtype=torch.bool, device=eye_d.device)
@@ -133,11 +143,12 @@ def _eye(src: torch.Tensor, eye_d: torch.Tensor, div: float, sign: float,
         return warp.forward_warp(
             src, eye_d, sign * ((div / 100.0) * w), -sign * ((cfg.separation / 100.0) * w),
             cfg.stereo_offset_exponent, cfg.convergence_point,
-            cfg.gradient_threshold, cfg.max_stretch)
+            cfg.gradient_threshold, cfg.max_stretch, depth_range=depth_range)
     return apply_stereo_divergence(
         src, eye_d, sign * div, -sign * cfg.separation,
         cfg.stereo_offset_exponent, cfg.fill_technique,
-        cfg.convergence_point, cfg.polylines_samples, cfg.polylines_exact), None
+        cfg.convergence_point, cfg.polylines_samples, cfg.polylines_exact,
+        depth_range=depth_range), None
 
 
 def _outputs(left, right, left_d: torch.Tensor, right_d: torch.Tensor,
@@ -167,7 +178,10 @@ def stereo_pipeline(image: torch.Tensor, depth: torch.Tensor,
     """Full depth->stereo conversion for a batch of frames.
 
     image: [B, H, W, C] float in [0, 1]; depth: [B, H, W] (0-1 or 0-255),
-    both on one device.
+    both on one device, or both `parallel.ShardedTensor`s sharded alike
+    over a mesh (`parallel.shard_batch`), and then every output comes back
+    sharded as they are, bit-equal to the unsharded run
+    (`parallel/pipeline.py`).
 
     Returns dict:
       stereo:      tuple of packed outputs, one per cfg.modes, 0-1; in the
@@ -179,6 +193,10 @@ def stereo_pipeline(image: torch.Tensor, depth: torch.Tensor,
                    gpu_warp; for the fills, the first packed output's shape
                    without its channel axis
     """
+    from .parallel.sharding import ShardedTensor
+    if isinstance(image, ShardedTensor) or isinstance(depth, ShardedTensor):
+        from .parallel.pipeline import sharded_pipeline
+        return sharded_pipeline(image, depth, cfg)
     left_d, right_d = _blurred_eye_depths(_depth255(depth.float()), cfg)
     left_div, right_div = cfg.eye_divergences()
     src = _eye_source(image.float(), cfg)

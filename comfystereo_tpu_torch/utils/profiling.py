@@ -1,0 +1,130 @@
+"""Tracing, timing, and memory observability.
+
+The reference's only instrumentation is an ad-hoc psutil/VRAM logger behind
+a DEBUG_MEMORY flag (GenerateStereo.py:8-23). The port's equivalents keep
+the JAX package's names and contract: `sync` fences the devices a tree of
+tensors lives on (PyTorch returns before the card finishes), `stage_timer`
+times a stage with CUDA events when it is given a card tensor or device and
+with the host clock otherwise, `trace` records a `torch.profiler` trace with
+CUDA activity where there is a GPU, and `memory_stats` reports host RSS and
+the caching allocator's current and peak bytes per initialised CUDA device.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import tempfile
+import time
+from typing import Dict, Optional, Set
+
+import torch
+
+DEBUG_MEMORY = os.environ.get("COMFYSTEREO_DEBUG_MEMORY", "0") == "1"
+
+
+def _devices(tree, out: Set[torch.device]) -> Set[torch.device]:
+    """The devices of every tensor in a tree of dicts, lists, tuples and
+    objects that hold tensors in `blocks` (the sharded tensors)."""
+    if isinstance(tree, torch.Tensor):
+        out.add(tree.device)
+    elif isinstance(tree, torch.device):
+        out.add(tree)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _devices(v, out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _devices(v, out)
+    elif hasattr(tree, "blocks"):
+        _devices(list(tree.blocks.values()), out)
+    return out
+
+
+def sync(tree) -> None:
+    """Wait until the work that produces every tensor of `tree` is done:
+    `torch.cuda.synchronize` on each CUDA device the tree holds; nothing for
+    CPU tensors."""
+    for dev in _devices(tree, set()):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
+def _cuda_device(tree) -> Optional[torch.device]:
+    cuda = sorted((d for d in _devices(tree, set()) if d.type == "cuda"), key=str)
+    return cuda[0] if cuda else None
+
+
+@contextlib.contextmanager
+def stage_timer(name: str, results: Optional[Dict[str, float]] = None,
+                verbose: bool = True, device=None):
+    """Time a pipeline stage in seconds. `device` (a device, a tensor or a
+    tree of tensors) on the card times the stage with CUDA events on that
+    device's current stream, synchronised at the end; otherwise the host
+    clock times it, and the caller fences its outputs with `sync()` inside."""
+    dev = _cuda_device(device) if device is not None else None
+    if dev is not None:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(torch.cuda.current_stream(dev))
+        yield
+        end.record(torch.cuda.current_stream(dev))
+        end.synchronize()
+        dt = start.elapsed_time(end) / 1000.0
+    else:
+        t0 = time.perf_counter()
+        yield
+        dt = time.perf_counter() - t0
+    if results is not None:
+        results[name] = dt
+    if verbose:
+        print(f"[timing] {name}: {dt * 1000:.2f} ms")
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str] = None):
+    """A `torch.profiler` trace (CPU, and CUDA where there is a GPU) of the
+    block, written to `log_dir/trace.json` (Chrome trace format) when it
+    ends; yields `log_dir`. The default directory is under the temporary
+    directory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    log_dir = log_dir or os.path.join(tempfile.gettempdir(), "comfystereo_trace")
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield log_dir
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def memory_stats() -> Dict[str, float]:
+    """Host RSS, and for each CUDA device this process has initialised the
+    caching allocator's current and peak bytes (`allocated_bytes.all.current`
+    and `.peak`), in MB, under the JAX package's key pattern
+    `cuda{i}_in_use_mb`, `cuda{i}_peak_mb`."""
+    stats: Dict[str, float] = {}
+    try:
+        import psutil
+
+        stats["host_rss_mb"] = psutil.Process().memory_info().rss / 2 ** 20
+    except ImportError:
+        import resource
+
+        stats["host_rss_mb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        for i in range(torch.cuda.device_count()):
+            ms = torch.cuda.memory_stats(i)
+            if "allocated_bytes.all.current" in ms:
+                stats[f"cuda{i}_in_use_mb"] = ms["allocated_bytes.all.current"] / 2 ** 20
+                stats[f"cuda{i}_peak_mb"] = ms["allocated_bytes.all.peak"] / 2 ** 20
+    return stats
+
+
+def log_memory(label: str = "") -> None:
+    """DEBUG_MEMORY-gated memory print (reference log_memory behaviour)."""
+    if not DEBUG_MEMORY:
+        return
+    stats = memory_stats()
+    pretty = ", ".join(f"{k}={v:.0f}MB" for k, v in stats.items())
+    print(f"[MEM] {label}: {pretty}")

@@ -728,3 +728,85 @@ def test_w8_layer_on_card_matches_cpu(dev, shape):
         want = cpu(x).float()
         rel = float((card(x.to(dev)).float().cpu() - want).norm() / want.norm())
     assert rel <= 1e-2
+
+
+@pytest.mark.parametrize("fill", ["gpu_warp", "naive", "hybrid_edge", "polylines_sharp"])
+@pytest.mark.parametrize("mesh_shape", [(4,), (2, 2)])
+def test_sharded_chunk_on_one_card_bit_equal(dev, fill, mesh_shape):
+    """stereo_pipeline on a mesh of slots on cuda:0 (frames, or frames and
+    rows with the blur's halos and the frames' extrema exchanged): every
+    output bit-equal to the unsharded chunk, each kernel launched once per
+    block as often as on the whole chunk."""
+    from comfystereo_tpu_torch.parallel import make_mesh, shard_batch
+    imgs, depths = fixtures.batch_fixture(4, H, W)
+    img, dep = torch.from_numpy(imgs).to(dev), torch.from_numpy(depths).to(dev)
+    cfg = StereoConfig(fill_technique=fill, modes=("top-bottom", "left-right"))
+    mods = (distance, gather, polylines, polylines_exact, warp_kernel)
+    before = [m.LAUNCHES for m in mods]
+    want = stereo_pipeline(img, dep, cfg)
+    torch.cuda.synchronize()
+    base = [m.LAUNCHES - b for m, b in zip(mods, before)]
+    axes = ("data",) if len(mesh_shape) == 1 else ("data", "seq")
+    mesh = make_mesh(4, axes=axes, shape=mesh_shape, device="cuda:0")
+    s_img, s_dep = shard_batch(img, dep, mesh, rows=len(mesh_shape) == 2)
+    before = [m.LAUNCHES for m in mods]
+    got = stereo_pipeline(s_img, s_dep, cfg)
+    torch.cuda.synchronize()
+    assert [m.LAUNCHES - b for m, b in zip(mods, before)] == [4 * n for n in base]
+    for g, w in zip(got["stereo"], want["stereo"]):
+        assert torch.equal(g.gather(), w)
+    for k in ("mask", "left_depth", "right_depth"):
+        assert torch.equal(got[k].gather(), want[k]), k
+
+
+@pytest.mark.parametrize("exponent", [1.0, 2.0])
+def test_backward_warp_family_card_matches_cpu(dev, exponent):
+    """The backward-warp family on the card against the CPU: masks
+    bit-equal, colours within 1e-5."""
+    from comfystereo_tpu_torch.ops import backward_warp as bw
+    imgs, depths = fixtures.batch_fixture(2, H, W)
+    image, depth = torch.from_numpy(imgs), torch.from_numpy(depths) * 255.0
+    args = (6.0, 1.0, exponent, 0.5)
+
+    def family(img, d):
+        out = {"bw": bw.backward_warp(img, d, *args), "gap": bw.forward_gap_mask(d, *args)}
+        for mode in ("border", "zeros", "reflection"):
+            out[mode], out[mode + " valid"] = bw.backward_warp_padded(img, d, *args,
+                                                                      fill_mode=mode)
+        out["wf"], out["wf gap"] = bw.warp_and_fill(img, d, *args)
+        out["interp"] = bw.interpolate_fill(img, out["gap"])
+        return out
+
+    cpu, card = family(image, depth), family(image.to(dev), depth.to(dev))
+    for k, want in cpu.items():
+        got = card[k].cpu()
+        if want.dtype == torch.bool:
+            assert torch.equal(got, want), k
+        else:
+            assert float((got - want).abs().max()) <= 1e-5, k
+
+
+def test_kernels_on_a_card_other_than_the_current(dev):
+    """Tensors on cuda:1 while cuda:0 is current: every kernel launches on
+    their card (the wrappers set the current device around the C entry) and
+    the sharded chunk over two cards is bit-equal to one card's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from comfystereo_tpu_torch.parallel import make_mesh, shard_batch
+    imgs, depths = fixtures.batch_fixture(2, H, W)
+    for fill in ("gpu_warp", "naive", "polylines_sharp"):
+        cfg = StereoConfig(fill_technique=fill, modes=("left-right", "top-bottom"))
+        want = stereo_pipeline(torch.from_numpy(imgs).to("cuda:0"),
+                               torch.from_numpy(depths).to("cuda:0"), cfg)
+        with torch.cuda.device(0):
+            got = stereo_pipeline(torch.from_numpy(imgs).to("cuda:1"),
+                                  torch.from_numpy(depths).to("cuda:1"), cfg)
+        torch.cuda.synchronize(1)
+        for g, w in zip(got["stereo"], want["stereo"]):
+            assert torch.equal(g.cpu(), w.cpu()), fill
+        mesh = make_mesh(2, axes=("data", "seq"), shape=(1, 2),
+                         device=["cuda:0", "cuda:1"])
+        s_img, s_dep = shard_batch(imgs, depths, mesh, rows=True)
+        sharded = stereo_pipeline(s_img, s_dep, cfg)
+        for g, w in zip(sharded["stereo"], want["stereo"]):
+            assert torch.equal(g.gather(), w), fill

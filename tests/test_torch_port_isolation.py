@@ -17,6 +17,11 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "comfystereo_tpu"))
 assert not bad, bad
 assert len(names) >= 15, names
+for need in ("parallel.sharding", "parallel.pipeline", "parallel.data_parallel",
+             "graft_entry", "native", "viewer.core", "viewer.headless",
+             "nodes.native_nodes", "ops.backward_warp", "utils.profiling",
+             "utils.tensors"):
+    assert "comfystereo_tpu_torch." + need in names, need
 print("ok", len(names))
 """
 

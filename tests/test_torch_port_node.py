@@ -22,6 +22,26 @@ def test_contract_equal():
     assert tnode.NODE_DISPLAY_NAME_MAPPINGS == jnode.NODE_DISPLAY_NAME_MAPPINGS
 
 
+def test_top_level_registration_equals_jax():
+    """The package registers the three node groups as the JAX package does
+    (comfystereo_tpu/__init__.py:24-62): five nodes, three flags, and
+    apply_stereo_divergence exported."""
+    import comfystereo_tpu as cs
+    import comfystereo_tpu_torch as ct
+
+    assert sorted(ct.NODE_CLASS_MAPPINGS) == sorted(cs.NODE_CLASS_MAPPINGS)
+    assert len(ct.NODE_CLASS_MAPPINGS) == 5
+    assert ct.NODE_DISPLAY_NAME_MAPPINGS == cs.NODE_DISPLAY_NAME_MAPPINGS
+    for flag in ("STEREO_NODES_AVAILABLE", "DIFFUSION_NODES_AVAILABLE",
+                 "VR_NODES_AVAILABLE"):
+        assert getattr(ct, flag) is getattr(cs, flag) is True, flag
+    for name, cls in ct.NODE_CLASS_MAPPINGS.items():
+        assert cls.__module__.startswith("comfystereo_tpu_torch."), name
+        assert cls.INPUT_TYPES() == cs.NODE_CLASS_MAPPINGS[name].INPUT_TYPES(), name
+    from comfystereo_tpu_torch.pipeline import apply_stereo_divergence
+    assert ct.apply_stereo_divergence is apply_stereo_divergence
+
+
 def _close_to_jax(got, want):
     """Blur-on slice tolerances: depth atol 1e-5, mask <= 0.1% mismatch,
     trunc(x*255) within 1 LSB on >= 99.9% of values."""

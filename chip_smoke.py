@@ -39,6 +39,16 @@ any failure ends the run with a non-zero exit code:
    4096, 40] and [16, 4096, 8192, 40]: the backward is `reference_bf16`'s
    VJP bit for bit and launches nothing, and d(sum o^2) is within 4e-3 (dq)
    and 1e-2 (dk, dv) of `reference_bf16`'s own gradient;
+2b. the kernels' input contracts: the exact polylines kernel at max_pieces
+   1, 4, 8, 12 and 16 (both of its slot templates) and the supersampled one
+   at k_candidates 1, 2, 4 and 8, sharp and soft, through the fused entries
+   on the same 12 frames, each bit-equal to its plain version with one
+   launch counted per call, and timed; C = 4 through the warp and both
+   polylines routes on the same frames, 16,384-column frames through the
+   warp, the gather and both polylines kernels (their workspace or direct
+   instances) and 327,680-column rows through the distance kernel, each
+   with one launch and its plain version's result, both timed; max_pieces
+   17 and k_candidates 9 raising before any launch;
 3. the main paths at full size, each with every launch counter set to 0 just
    before and read just after: StereoImageNode().generate on 12 frames of
    1920x1080 with the default config (gpu_warp, depth blur, left-right,
@@ -130,6 +140,8 @@ any failure ends the run with a non-zero exit code:
    the loaded bundle against `build_sd_model`'s in turns, and the w8 CFG
    call against bf16 with the UNet's bytes as stored and each call's peak
    device memory; for
+   the polylines kernels' times by max_pieces and k_candidates from phase
+   2b (in the `kernels` line); for
    the kernels redesigned after their port (all six) their registers,
    spills and shared memory from `-Xptxas -v`, for the gather of a colour plane its
    bound, and for the polylines kernels their recounted operations beside
@@ -754,6 +766,189 @@ def check_node_outputs(stereo, left_d, right_d, mask, mask_shape, n, h, w):
     if parallax <= 0.0:
         raise AssertionError(f"no parallax ({parallax})")
     return parallax
+
+
+# The exact kernel's max_pieces across both breakpoint-slot templates (12,
+# 16) and the supersampled kernel's k_candidates, checked and timed at the
+# main path's shapes; the colour count over 3; and a row width over the
+# shared memory of the warp, the gather and both polylines kernels, and one
+# over the distance kernel's.
+EXACT_KS = (1, 4, 8, 12, 16)
+SS_KS = (1, 2, 4, 8)
+WIDE = 16384
+WIDE_DISTANCE = 327680
+
+
+def _expect_launches(mod, before: int, want: int, what: str) -> None:
+    if mod.LAUNCHES != before + want:
+        raise AssertionError(f"{what}: {mod.LAUNCHES - before} launches, expected {want}")
+
+
+def _expect_raise(fn, mods, what: str) -> None:
+    """A count past a kernel's range raises a ValueError before any launch."""
+    before = [m.LAUNCHES for m in mods]
+    try:
+        fn()
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"{what}: did not raise")
+    if [m.LAUNCHES for m in mods] != before:
+        raise AssertionError(f"{what}: launched before raising")
+
+
+def phase_input_contracts(dev, smi: str, n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
+    """The kernels take what the TPU kernels take: the exact polylines
+    kernel at max_pieces EXACT_KS and the supersampled one at k_candidates
+    SS_KS, sharp and soft, through the fused entries on the main path's
+    1080p B=12 rows, each bit-equal to its plain version with one launch
+    counted per call, and timed; C = 4 through the warp and both polylines
+    routes on the same frames, WIDE-column frames through the warp, the
+    gather and both polylines kernels (their workspace or direct instances)
+    and WIDE_DISTANCE-column rows through the distance kernel, each with one
+    launch and the plain version's result, both timed; and max_pieces 17
+    and k_candidates 9 raising before any launch."""
+    import torch
+    from comfystereo_tpu_torch.kernels import distance, gather
+    from comfystereo_tpu_torch.kernels import polylines as ss, polylines_exact as ex
+    from comfystereo_tpu_torch.kernels import warp_kernel as wk
+    from comfystereo_tpu_torch.ops import depth as depth_ops
+    from comfystereo_tpu_torch.ops import polylines as poly_ops
+    from comfystereo_tpu_torch.ops import polylines_exact as exact_ops
+    from comfystereo_tpu_torch.ops import warp as warp_ops
+
+    imgs, deps = fixture_frames(n, h, w)
+    image255 = torch.from_numpy(imgs).to(dev).float()
+    depth255 = torch.from_numpy(deps).to(dev).float()
+    x, coord, colors, md = polylines_inputs(image255, depth255, DIV_PCT, 0.0)
+    out = {"exact_ms_by_max_pieces": {}, "supersampled_ms_by_k_candidates": {},
+           "other_inputs_ms": {}}
+    for sharp, mode in ((True, "sharp"), (False, "soft")):
+        for k in EXACT_KS:
+            kw = dict(sharp=sharp, max_pieces=k, max_disp=md)
+            before = ex.LAUNCHES
+            got = ex.polylines_exact_rows_fused(coord, colors, 0.0, **kw)
+            sync()
+            _expect_launches(ex, before, 1, f"exact max_pieces {k}")
+            if not torch.equal(got, ex.polylines_exact_rows_fused_plain(coord, colors, 0.0,
+                                                                        sharp, k, md)):
+                raise AssertionError(f"exact kernel at max_pieces {k} ({mode}) differs "
+                                     "from its plain version")
+            out["exact_ms_by_max_pieces"][f"{mode} {k}"] = time_ms(
+                lambda: ex.polylines_exact_rows_fused(coord, colors, 0.0, **kw))
+        for k in SS_KS:
+            kw = dict(sharp=sharp, samples=8, k_candidates=k, max_disp=md)
+            before = ss.LAUNCHES
+            got = ss.polylines_scanline_fused(coord, colors, 0.0, **kw)
+            sync()
+            _expect_launches(ss, before, 1, f"supersampled k_candidates {k}")
+            if not torch.equal(got, ss.polylines_scanline_fused_plain(coord, colors, 0.0, **kw)):
+                raise AssertionError(f"supersampled kernel at k_candidates {k} ({mode}) "
+                                     "differs from its plain version")
+            out["supersampled_ms_by_k_candidates"][f"{mode} {k}"] = time_ms(
+                lambda: ss.polylines_scanline_fused(coord, colors, 0.0, **kw))
+        del got
+    log(f"  exact polylines kernel at max_pieces {EXACT_KS} and supersampled at k_candidates "
+        f"{SS_KS}, sharp and soft, on [{n * h}, {w}] rows: bit-equal to plain, one launch "
+        "each; ms per launch: " + json.dumps(out) + f" [{smi}]")
+
+    mods = (wk, ex, ss, gather, distance)
+
+    def taken(label, mod, kernel, plain, same):
+        """One launch of `mod`'s kernel for `kernel()`, none of the others,
+        and `same(got, plain())`; both timed."""
+        before = [m.LAUNCHES for m in mods]
+        got = kernel()
+        sync()
+        want = [b + (m is mod) for m, b in zip(mods, before)]
+        if [m.LAUNCHES for m in mods] != want:
+            raise AssertionError(f"{label}: launches {[m.LAUNCHES for m in mods]}, "
+                                 f"expected {want}")
+        if not same(got, plain()):
+            raise AssertionError(f"{label}: the kernel differs from the plain version")
+        out["other_inputs_ms"][label] = {"ms": time_ms(kernel, iters=3, warmup=1),
+                                         "plain_ms": time_ms(plain, iters=1, warmup=0)}
+        del got
+
+    def warp_same(got, want):
+        # gap masks bit-equal, colours within phase 2's 1e-5 (fixture) or on
+        # all but 0.1% of the pixels (noise)
+        err = (got[0].float() - want[0].float()).abs().amax(-1)
+        return torch.equal(got[1], want[1]) and float((err > 1e-5).float().mean()) < 0.001
+
+    def equal(got, want):
+        return torch.equal(got, want)
+
+    div_px = DIV_PCT / 100.0 * w
+    nd = depth_ops.normalize_depth(depth255) - 0.5
+    rgba = torch.cat([image255, image255[..., :1]], -1)
+    u8_4 = torch.trunc(rgba)
+    c4 = u8_4.reshape(n * h, w, 4).contiguous()
+    wkw = (rgba / 255.0, depth255, div_px, 0.0, 2.0)
+    taken(f"warp C=4 [{n},{h},{w}]", wk, lambda: warp_ops.forward_warp(*wkw),
+          lambda: warp_ops.forward_warp(*wkw, impl="twin"), warp_same)
+    ekw = (u8_4, nd, div_px, 0.0, 2.0)
+    taken(f"polylines_exact C=4 [{n},{h},{w}]", ex,
+          lambda: exact_ops.apply_polylines_exact(*ekw),
+          lambda: exact_ops.apply_polylines_exact(*ekw, impl="twin"), equal)
+    skw = dict(sharp=True, samples=8, k_candidates=4, max_disp=md)
+    taken(f"polylines C=4 [{n},{h},{w}]", ss, lambda: poly_ops.apply_polylines(*ekw),
+          lambda: ss.polylines_scanline_fused_plain(coord, c4, 0.0, **skw).reshape(u8_4.shape),
+          equal)
+    u8 = torch.trunc(image255)
+    _expect_raise(lambda: exact_ops.apply_polylines_exact(u8, nd, div_px, 0.0, 2.0,
+                                                          max_pieces=17),
+                  mods, "polylines_exact max_pieces=17")
+    _expect_raise(lambda: poly_ops.apply_polylines(u8, nd, div_px, 0.0, 2.0, k_candidates=9),
+                  mods, "polylines k_candidates=9")
+    del x, coord, colors, nd, rgba, u8_4, c4, u8, image255, depth255
+    torch.cuda.empty_cache()
+
+    from comfystereo_tpu_torch.utils import fixtures
+    wide_img = torch.from_numpy(fixtures.create_test_image(h, WIDE)).to(dev).float()[None]
+    wide_dep = torch.from_numpy(fixtures.create_depth_map(h, WIDE)).to(dev).float()[None]
+    wdiv = DIV_PCT / 100.0 * WIDE
+    wkw = (wide_img / 255.0, wide_dep, wdiv, 0.0, 2.0)
+    taken(f"warp W={WIDE} [1,{h},{WIDE}]", wk, lambda: warp_ops.forward_warp(*wkw),
+          lambda: warp_ops.forward_warp(*wkw, impl="twin"), warp_same)
+    planes = wide_img.movedim(-1, 1).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cols = torch.arange(WIDE, device=dev, dtype=torch.int32)
+    disp = int(wdiv) + 2
+    idx = (cols + torch.randint(-disp, disp + 1, (1, 1, h, WIDE), device=dev, generator=gen,
+                                dtype=torch.int32)).clamp(0, WIDE - 1)
+    taken(f"gather W={WIDE} [1,3,{h},{WIDE}]", gather,
+          lambda: gather.bounded_take_along_w(planes, idx, disp),
+          lambda: gather.bounded_take_along_w_plain(planes, idx), equal)
+    _, wcoord, wcolors, wmd = polylines_inputs(wide_img, wide_dep, DIV_PCT, 0.0)
+    ekw = dict(sharp=True, max_pieces=12, max_disp=wmd)
+    taken(f"polylines_exact W={WIDE} [1,{h},{WIDE}]", ex,
+          lambda: ex.polylines_exact_rows_fused(wcoord, wcolors, 0.0, **ekw),
+          lambda: ex.polylines_exact_rows_fused_plain(wcoord, wcolors, 0.0, True, 12, wmd),
+          equal)
+    skw = dict(sharp=True, samples=8, k_candidates=4, max_disp=wmd)
+    taken(f"polylines W={WIDE} [1,{h},{WIDE}]", ss,
+          lambda: ss.polylines_scanline_fused(wcoord, wcolors, 0.0, **skw),
+          lambda: ss.polylines_scanline_fused_plain(wcoord, wcolors, 0.0, **skw), equal)
+    del wide_img, wide_dep, planes, idx, wcoord, wcolors
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(4)
+    drows = torch.rand((3, WIDE_DISTANCE), device=dev, generator=gen) * 255.0
+    dkw = dict(edge_threshold=20.0, mask_radius=20, falloff=2.0, height=3)
+
+    def pair_equal(got, want):
+        return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+    taken(f"distance W={WIDE_DISTANCE} [3,{WIDE_DISTANCE}]", distance,
+          lambda: distance.edge_weights_fused(drows, **dkw),
+          lambda: distance.edge_weights_plain(drows, **dkw), pair_equal)
+    del drows
+    log("  other inputs (one launch each, the plain version's result; max_pieces 17 and "
+        "k_candidates 9 raised before any launch), ms per call: "
+        + json.dumps(out["other_inputs_ms"]) + f" [{smi}]")
+    log("phase 2b ok: the polylines kernels take max_pieces 1-16 and k_candidates 1-8; "
+        "the kernels take C = 4 and rows over their shared memory")
+    return out
 
 
 def phase_main_path(dev, n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
@@ -2912,6 +3107,7 @@ def main() -> int:
 
     smi, name = phase_device()
     errs = phase_kernels(dev)
+    contracts = phase_input_contracts(dev, smi)
     launches, _ = phase_main_path(dev)
     sharded = phase_sharded(dev, smi)
     dryrun = phase_dryrun_and_vr_nodes(dev, smi)
@@ -2927,6 +3123,12 @@ def main() -> int:
     std_cpu_errs = phase_standard_card_vs_cpu(dev)
     ckpt_cpu_errs = phase_checkpoint_card_vs_cpu(dev)
     kernels, pipeline = phase_times(dev, launches, errs, smi, name)
+    for k in kernels:
+        if k["name"] == "polylines_exact_rows":
+            k["ms_by_max_pieces"] = contracts["exact_ms_by_max_pieces"]
+        if k["name"] == "polylines_scanline":
+            k["ms_by_k_candidates"] = contracts["supersampled_ms_by_k_candidates"]
+    pipeline["other_inputs_ms"] = contracts["other_inputs_ms"]
     flash, pipeline["stereodiffusion_fast"] = diffusion_times(
         dev, sd, sd["launches"]["flash_attention"], errs["flash_max_abs_err"], smi, name)
     # launches: the Fast node's, both Standard node calls' and the loaded

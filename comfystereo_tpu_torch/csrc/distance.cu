@@ -25,7 +25,11 @@
 // by shuffles for the last set column up to each word and the first from
 // each word on; after a second barrier each column finds its nearest edge
 // on either side in its own word (`__clz`, `__ffs`) or by one lookup in
-// those arrays. Shared memory: 24 B per 32 columns. The fused entry reads
+// those arrays. Shared memory: 24 B per 32 columns, so rows up to 309,920
+// columns; a wider row (up to 2^24 columns, where float32 still counts
+// every column) keeps the words and scans in a device-memory workspace of
+// one row per CTA, and each CTA walks rows at a stride of the grid (the
+// kGlobal instances). The fused entry reads
 // the columns on either side itself (L1 holds them) rather than waiting on
 // a shuffle. Bound on Hopper: bytes, 12 per pixel
 // through the fused entry (depth in, two weights out), 10 through the mask
@@ -54,8 +58,16 @@ struct Args {
   int pow_mode;
   float* out_a;  // distances (mask entry) or weights (fused), [n, w] each
   float* out_b;
-  int w;
+  int* workspace;  // kGlobal: row_words(w) words per CTA
+  int n, w;
 };
+
+constexpr int kMaxWidth = 1 << 24;  // float32 counts every column below it
+
+// 4-byte words of one row's words and scans: 6 per 32 columns.
+__host__ __device__ inline size_t row_words(int w) {
+  return 6 * static_cast<size_t>((w + 31) / 32);
+}
 
 // (a + 2b) + c of the rows above, at and below (repeated at the image's top
 // and bottom), at column x.
@@ -102,17 +114,16 @@ __device__ void scan_words(const unsigned* words, int n, int* last, int* first) 
   }
 }
 
+// One row. Per mask at `s_mem` (shared memory or the CTA's workspace): its
+// words, then the last set column up to each word and the first from each
+// word on.
 template <bool kFused>
-__global__ void __launch_bounds__(kThreads) edge_distances_kernel(Args a) {
-  // Per mask: its words, then the last set column up to each word and the
-  // first from each word on.
-  extern __shared__ int s_mem[];
+__device__ __forceinline__ void distance_row(const Args& a, int row, int* s_mem) {
   const int w = a.w;
   const int n = (w + 31) / 32;
   unsigned* s_words = reinterpret_cast<unsigned*>(s_mem);  // mask a's, then b's
   int* s_last = s_mem + 2 * n;
   int* s_first = s_mem + 4 * n;
-  const int row = blockIdx.x;
   const long long at0 = static_cast<long long>(row) * w;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
@@ -184,37 +195,70 @@ __global__ void __launch_bounds__(kThreads) edge_distances_kernel(Args a) {
   }
 }
 
+// kGlobal: the words and scans live in the workspace, and each CTA takes
+// rows blockIdx.x, blockIdx.x + gridDim.x, ...; otherwise one row per CTA
+// with them in shared memory.
+template <bool kFused, bool kGlobal>
+__global__ void __launch_bounds__(kThreads) edge_distances_kernel(Args a) {
+  extern __shared__ int s_mem[];
+  if (!kGlobal) {
+    distance_row<kFused>(a, blockIdx.x, s_mem);
+    return;
+  }
+  int* words = a.workspace + blockIdx.x * row_words(a.w);
+  for (int row = blockIdx.x; row < a.n; row += gridDim.x) {
+    distance_row<kFused>(a, row, words);
+    __syncthreads();  // the next row overwrites the words
+  }
+}
+
+// ctas: the grid of the kGlobal instances (each with row_words(w) words of
+// workspace); 0 when the words fit in shared memory.
 template <bool kFused>
-int launch(const Args& a, int n, void* stream) {
-  if (n == 0 || a.w == 0) return 0;
-  const size_t smem = 24 * static_cast<size_t>((a.w + 31) / 32);
-  cudaError_t err = cs::allow_dynamic_smem(edge_distances_kernel<kFused>, smem);
+int launch(const Args& a, int ctas, void* stream) {
+  if (a.n == 0 || a.w == 0) return 0;
+  if (a.w > kMaxWidth) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ctas > 0) {
+    if (a.workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    edge_distances_kernel<kFused, true><<<ctas, kThreads, 0, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t smem = 4 * row_words(a.w);
+  cudaError_t err = cs::allow_dynamic_smem(edge_distances_kernel<kFused, false>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  edge_distances_kernel<kFused><<<n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  edge_distances_kernel<kFused, false><<<a.n, kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// masks: [n, w] bool (one byte each); dists: [n, w] float32. Returns the
-// cudaError_t of the launch.
+// masks: [n, w] bool (one byte each); dists: [n, w] float32. Rows of up to
+// 309,920 columns take ctas = 0 and no workspace; wider ones a grid of
+// `ctas` CTAs and a workspace of ctas * row_words(w) 4-byte words. Returns
+// the cudaError_t of the launch.
 extern "C" int cs_edge_distances(const void* mask_a, const void* mask_b, void* dist_a,
-                                 void* dist_b, int n, int w, void* stream) {
+                                 void* dist_b, void* workspace, int ctas, int n, int w,
+                                 void* stream) {
   Args a{};
   a.mask_a = static_cast<const unsigned char*>(mask_a);
   a.mask_b = static_cast<const unsigned char*>(mask_b);
   a.out_a = static_cast<float*>(dist_a);
   a.out_b = static_cast<float*>(dist_b);
+  a.workspace = static_cast<int*>(workspace);
+  a.n = n;
   a.w = w;
-  return launch<false>(a, n, stream);
+  return launch<false>(a, ctas, stream);
 }
 
 // depth: [n, w] float32 0-255, rows of n / height images; weights: [n, w]
 // float32 (left eye's edges, then the right eye's). threshold10 is
 // float32(10 * edge_threshold); pow_mode from kernels/_common.py:pow_mode.
-extern "C" int cs_edge_weights(const void* depth, void* weight_a, void* weight_b, int n,
-                               int w, int height, float threshold10, float radius,
-                               float falloff, int pow_mode, void* stream) {
+// Otherwise as cs_edge_distances.
+extern "C" int cs_edge_weights(const void* depth, void* weight_a, void* weight_b,
+                               void* workspace, int ctas, int n, int w, int height,
+                               float threshold10, float radius, float falloff, int pow_mode,
+                               void* stream) {
   Args a{};
   a.depth = static_cast<const float*>(depth);
   a.height = height;
@@ -224,6 +268,8 @@ extern "C" int cs_edge_weights(const void* depth, void* weight_a, void* weight_b
   a.pow_mode = pow_mode;
   a.out_a = static_cast<float*>(weight_a);
   a.out_b = static_cast<float*>(weight_b);
+  a.workspace = static_cast<int*>(workspace);
+  a.n = n;
   a.w = w;
-  return launch<true>(a, n, stream);
+  return launch<true>(a, ctas, stream);
 }

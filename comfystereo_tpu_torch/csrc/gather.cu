@@ -21,8 +21,11 @@
 // A row that starts 4-byte but not 16-byte aligned (M or N not a multiple of
 // 4, or a view at an offset) is staged at the same phase in shared memory,
 // with a scalar head and tail. The kernel reads any column of the row, so it
-// needs no displacement bound; a row of values must fit in shared memory
-// (the wrapper checks). An index outside [0, M-1] stops the kernel with a
+// needs no displacement bound. Where the staged rows do not fit in shared
+// memory (a row of more than 29,053 columns, or 14,525 for a three-channel
+// plane), the direct instance serves the same rows without staging: each
+// thread reads its index and gathers from device memory through the
+// read-only path, which L2 holds for the row. An index outside [0, M-1] stops the kernel with a
 // device-side assert, as torch.gather's own CUDA kernel does; the CPU path
 // raises at once.
 #include <cassert>
@@ -114,19 +117,43 @@ __global__ void __launch_bounds__(kThreads) gather_rows_kernel(
   }
 }
 
+// The rows too wide to stage: the same row map, each output word gathered
+// from device memory.
+__global__ void __launch_bounds__(kThreads) gather_rows_direct_kernel(
+    const unsigned* __restrict__ values, const int* __restrict__ idx,
+    unsigned* __restrict__ out, int m, int n, int rep, int inner) {
+  const int ir = blockIdx.x;  // index row
+  const long long first = static_cast<long long>(ir / inner) * rep * inner + ir % inner;
+  const int* irow = idx + static_cast<long long>(ir) * n;
+  for (int j = threadIdx.x; j < n; j += kThreads) {
+    const int k = __ldg(irow + j);
+    assert(k >= 0 && k < m);
+    for (int c = 0; c < rep; ++c) {
+      const long long r = first + static_cast<long long>(c) * inner;
+      out[r * n + j] = __ldg(values + r * m + k);
+    }
+  }
+}
+
 }  // namespace
 
 // values: [rows, m] 4-byte elements; idx: [rows / rep, n] int32 (see above);
-// out: [rows, n]; every pointer 4-byte aligned. Returns the cudaError_t of the
-// launch (cudaErrorInvalidValue when the staged rows exceed shared memory:
-// 4 * (rep * slot(m) + slot(n)) bytes, the rule of kernels/gather.py).
+// out: [rows, n]; every pointer 4-byte aligned. Staged rows take
+// 4 * (rep * slot(m) + slot(n)) bytes of shared memory (the rule of
+// kernels/gather.py); where that is over what a CTA holds, the direct
+// instance runs. Returns the cudaError_t of the launch.
 extern "C" int cs_gather_rows_b32(const void* values, const void* idx, void* out, int rows,
                                   int m, int n, int rep, int inner, void* stream) {
   if (rows == 0 || n == 0) return 0;
   if (m <= 0 || n < 0 || rep <= 0 || inner <= 0 || rows % (rep * inner) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long smem = 4ll * (static_cast<long long>(rep) * slot(m) + slot(n));
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > kMaxSmem) {
+    gather_rows_direct_kernel<<<rows / rep, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const unsigned*>(values), static_cast<const int*>(idx),
+        static_cast<unsigned*>(out), m, n, rep, inner);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         gather_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

@@ -52,7 +52,14 @@
 // kernel gathered candidate points with per-vreg dynamic gathers and
 // rebuilt every candidate for every sample; here a group's winner is built
 // once for the samples it serves, and its colours come from device memory,
-// which keeps shared memory at 6W floats per row. Built with -fmad=false,
+// which keeps shared memory at 6W floats per row. Colours go in groups of
+// up to 3 channels: steps 4-5 run once per group (C of 1 to 3 is one
+// group), so any C is taken with three accumulators. K = k_candidates (1
+// to 8) is a run-time bound of the candidate loops. Rows whose planes fit
+// (up to 9,598 columns at S = 8) stage them in shared memory, one row per
+// CTA; wider rows keep them in a device-memory workspace of one row per CTA
+// (the kGlobal instances, whose CTAs walk rows at a stride of the grid).
+// Built with -fmad=false,
 // never fast math: the divisions and every product and sum round as the
 // plain version's.
 #include <cuda_runtime.h>
@@ -63,13 +70,14 @@
 namespace {
 
 using cs::kThreads;
-constexpr int kK = 4;  // k_candidates, the K of the JAX package
+constexpr int kMaxK = 8;  // the largest k_candidates (K) the kernel takes
 
-struct Row {  // one row staged in shared memory, its colours in device memory
+struct Row {  // one row's staged planes, its colours in device memory
   const float* x;
   const float* co;
-  const float* img;  // [w, c] HWC
+  const float* img;  // [w, c] HWC, at the group's first channel
   int w, c;
+  int cg;    // channels in the group, 1 to 3
   float hw;  // half width of a pixel's flat top: 0.45 sharp, 0 soft
 };
 
@@ -128,7 +136,8 @@ struct Winner {
   // `bound`: the largest right end (upward) or least left end (downward)
   // of the group's member segments with x1 > x0, which are its candidates'
   // keys: where it does not pass s, no candidate is hit.
-  __device__ __forceinline__ void update(const Row& r, int base, float s, float bound) {
+  __device__ __forceinline__ void update(const Row& r, int base, float s, float bound,
+                                         int k_cand) {
     if (hit != -2 && (kUpward ? s < until : !(until < s))) return;
     constexpr int kPer = kSharp ? 2 : 1;
     const int from = kUpward && hit >= 0 ? hit + 1 : 0;
@@ -136,7 +145,7 @@ struct Winner {
     float lim = none ? bound : INFINITY;
     Seg g{0.0f, 1.0f, 0.0f, 0.0f, -1, -1, false};
     hit = -1;
-    for (int i = from / kPer; i < kK && hit < 0 && !none; ++i) {
+    for (int i = from / kPer; i < k_cand && hit < 0 && !none; ++i) {
       const int slot = base + (kUpward ? i : -i);
       const int pl = min(max(slot - 1, 0), r.w - 1), pr = min(max(slot, 0), r.w - 1);
       const float xl = r.x[pl], col = r.co[pl], xr = r.x[pr], cor = r.co[pr];
@@ -163,9 +172,9 @@ struct Winner {
     denom = fabsf(g.x1 - g.x0) < 1e-9f ? 1.0f : g.x1 - g.x0;
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) {
-      if (ch >= r.c) break;
-      a[ch] = hit >= 0 ? __ldg(r.img + g.c_l * r.c + ch) : 0.0f;
-      b[ch] = hit >= 0 ? __ldg(r.img + g.c_r * r.c + ch) : 0.0f;
+      if (ch >= r.cg) break;
+      a[ch] = hit >= 0 ? __ldg(r.img + static_cast<long long>(g.c_l) * r.c + ch) : 0.0f;
+      b[ch] = hit >= 0 ? __ldg(r.img + static_cast<long long>(g.c_r) * r.c + ch) : 0.0f;
     }
   }
 
@@ -177,16 +186,35 @@ struct Winner {
   }
 };
 
+struct Params {
+  const float* x;  // the sums entry's point positions (not kFused)
+  const float* co;
+  float sep;
+  const float* colors;
+  float* out;
+  float* workspace;  // kGlobal: row_words(w, samples) words per CTA
+  int n, w, c, samples, k_cand, max_disp, rounds;
+};
+
+// 4-byte words of one row's planes: x and coord, the two endpoint streams on
+// W + 1 slots scanned and as they are, and the sample offsets.
+__host__ __device__ inline size_t row_words(int w, int samples) {
+  return 2 * static_cast<size_t>(w) + 4 * (static_cast<size_t>(w) + 1) + samples;
+}
+
+// One row, its planes at `planes` (shared memory or the CTA's workspace).
 // kC: the channel count when it is 3 (the colour loops then unroll), 0 for
 // a count taken from c.
 template <bool kSharp, bool kFused, int kC>
-__global__ void __launch_bounds__(kThreads) polylines_kernel(
-    const float* __restrict__ xg, const float* __restrict__ cog, float sep,
-    const float* __restrict__ colors, float* __restrict__ out, int w, int c_arg, int samples,
-    int max_disp, int rounds) {
-  const int c = kC ? kC : c_arg;
-  extern __shared__ float smem[];
-  float* s_x = smem;
+__device__ __forceinline__ void polylines_row(const Params& p, long long row, float* planes) {
+  const float* __restrict__ xg = p.x;
+  const float* __restrict__ cog = p.co;
+  const float sep = p.sep;
+  float* __restrict__ out = p.out;
+  const int w = p.w, samples = p.samples, k_cand = p.k_cand, max_disp = p.max_disp;
+  const int rounds = p.rounds;
+  const int c = kC ? kC : p.c;
+  float* s_x = planes;
   float* s_co = s_x + w;
   float* s_hi = s_co + w;       // prefix max of the positive group's e_hi, W + 1 slots
   float* s_lo = s_hi + w + 1;   // suffix min of the negative group's e_lo, W + 1 slots
@@ -195,7 +223,6 @@ __global__ void __launch_bounds__(kThreads) polylines_kernel(
   float* s_elo = s_ehi + w + 1;
   __shared__ float s_scan[2 * kThreads];
 
-  const long long row = blockIdx.x;
   const int tid = threadIdx.x;
   const float hw = kSharp ? 0.45f : 0.0f;
   const float wf = static_cast<float>(w);
@@ -248,7 +275,7 @@ __global__ void __launch_bounds__(kThreads) polylines_kernel(
   }
   __syncthreads();
 
-  const Row r{s_x, s_co, colors + row * w * c, w, c, hw};
+  const float* img = p.colors + row * w * c;
   for (int col = tid; col < w; col += kThreads) {
     const float colf = static_cast<float>(col);
 
@@ -271,55 +298,78 @@ __global__ void __launch_bounds__(kThreads) polylines_kernel(
     }
     const int idx_n = min(max(lo - 1, 0), w);
 
-    // 4-5. The samples, in order (`t_body`). Only a covering group's ip,
-    // and both groups' closenesses only where both cover, are used.
-    Winner<kSharp, true> p;
-    Winner<kSharp, false> n;
     // A slot's e_hi (e_lo) is the largest right (least left) end of its
     // candidates that may be hit, so these bound each group's keys.
-    float hi4 = -INFINITY, lo4 = INFINITY;
+    float hi_k = -INFINITY, lo_k = INFINITY;
 #pragma unroll
-    for (int i = 0; i < kK; ++i) {
-      if (idx_p + i <= w) hi4 = fmaxf(hi4, s_ehi[idx_p + i]);
-      if (idx_n - i >= 0) lo4 = fminf(lo4, s_elo[idx_n - i]);
+    for (int i = 0; i < kMaxK; ++i) {
+      if (i >= k_cand) break;
+      if (idx_p + i <= w) hi_k = fmaxf(hi_k, s_ehi[idx_p + i]);
+      if (idx_n - i >= 0) lo_k = fminf(lo_k, s_elo[idx_n - i]);
     }
-    float acc[3] = {0.0f, 0.0f, 0.0f};
-    for (int t = 0; t < samples; ++t) {
-      const float s = colf + s_off[t];
-      p.update(r, idx_p, s, hi4);
-      n.update(r, idx_n, s, lo4);
-      float ip_p = 0.0f, ip_n = 0.0f;
-      const bool cov_p = p.covers(s, ip_p);
-      const bool cov_n = n.covers(s, ip_n);
-      bool use_n = cov_n;
-      if (cov_p && cov_n) {
-        const float cl_p = p.cl0 * (1.0f - ip_p) + p.cl1 * ip_p;
-        const float cl_n = n.cl0 * (1.0f - ip_n) + n.cl1 * ip_n;
-        use_n = cl_n > cl_p;
+
+    // 4-5. For each group of up to 3 channels, the samples, in order
+    // (`t_body`). Only a covering group's ip, and both groups' closenesses
+    // only where both cover, are used.
+    for (int g0 = 0; g0 < c; g0 += 3) {
+      const Row r{s_x, s_co, img + g0, w, c, min(c - g0, 3), hw};
+      Winner<kSharp, true> wp;
+      Winner<kSharp, false> wn;
+      float acc[3] = {0.0f, 0.0f, 0.0f};
+      for (int t = 0; t < samples; ++t) {
+        const float s = colf + s_off[t];
+        wp.update(r, idx_p, s, hi_k, k_cand);
+        wn.update(r, idx_n, s, lo_k, k_cand);
+        float ip_p = 0.0f, ip_n = 0.0f;
+        const bool cov_p = wp.covers(s, ip_p);
+        const bool cov_n = wn.covers(s, ip_n);
+        bool use_n = cov_n;
+        if (cov_p && cov_n) {
+          const float cl_p = wp.cl0 * (1.0f - ip_p) + wp.cl1 * ip_p;
+          const float cl_n = wn.cl0 * (1.0f - ip_n) + wn.cl1 * ip_n;
+          use_n = cl_n > cl_p;
+        }
+        const bool neither = !(cov_p || cov_n);
+        const float ip = use_n ? ip_n : ip_p;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          if (ch >= r.cg) break;
+          float v;
+          if (neither) {
+            v = wp.hit >= 0 ? wp.a[ch] : wn.a[ch];
+          } else {
+            const float ca = use_n ? wn.a[ch] : wp.a[ch], cb = use_n ? wn.b[ch] : wp.b[ch];
+            v = ca * (1.0f - ip) + cb * ip;
+          }
+          acc[ch] = acc[ch] + v;
+        }
       }
-      const bool neither = !(cov_p || cov_n);
-      const float ip = use_n ? ip_n : ip_p;
+      float* o = out + (row * w + col) * c + g0;
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch) {
-        if (ch >= c) break;
-        float v;
-        if (neither) {
-          v = p.hit >= 0 ? p.a[ch] : n.a[ch];
-        } else {
-          const float ca = use_n ? n.a[ch] : p.a[ch], cb = use_n ? n.b[ch] : p.b[ch];
-          v = ca * (1.0f - ip) + cb * ip;
-        }
-        acc[ch] = acc[ch] + v;
+        if (ch >= r.cg) break;
+        o[ch] = kFused ? truncf(fminf(fmaxf(acc[ch] / static_cast<float>(samples) + 0.5f,
+                                            0.0f), 255.0f))
+                       : acc[ch];
       }
     }
-    float* o = out + (row * w + col) * c;
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      if (ch >= c) break;
-      o[ch] = kFused ? truncf(fminf(fmaxf(acc[ch] / static_cast<float>(samples) + 0.5f, 0.0f),
-                                    255.0f))
-                     : acc[ch];
-    }
+  }
+}
+
+// kGlobal: the planes live in the workspace, and each CTA renders rows
+// blockIdx.x, blockIdx.x + gridDim.x, ...; otherwise one row per CTA with
+// its planes in shared memory.
+template <bool kSharp, bool kFused, int kC, bool kGlobal>
+__global__ void __launch_bounds__(kThreads) polylines_kernel(Params p) {
+  extern __shared__ float smem[];
+  if (!kGlobal) {
+    polylines_row<kSharp, kFused, kC>(p, blockIdx.x, smem);
+    return;
+  }
+  float* planes = p.workspace + blockIdx.x * row_words(p.w, p.samples);
+  for (int row = blockIdx.x; row < p.n; row += gridDim.x) {
+    polylines_row<kSharp, kFused, kC>(p, row, planes);
+    __syncthreads();  // the next row overwrites the planes
   }
 }
 
@@ -331,63 +381,63 @@ int search_rounds(int max_disp) {
   return (r > 1 ? r : 1) + 1;
 }
 
-template <bool kSharp, bool kFused, int kC>
-int launch_c(const void* x, const void* co, float sep, const void* colors, void* out, int n,
-             int w, int c, int samples, int max_disp, void* stream) {
-  const size_t smem =
-      (2 * static_cast<size_t>(w) + 4 * (static_cast<size_t>(w) + 1) + samples) * sizeof(float);
-  cudaError_t err = cs::allow_dynamic_smem(polylines_kernel<kSharp, kFused, kC>, smem);
+template <bool kSharp, bool kFused, int kC, bool kGlobal>
+int launch_kernel(const Params& p, int ctas, void* stream) {
+  const size_t smem = kGlobal ? 0 : row_words(p.w, p.samples) * sizeof(float);
+  auto kernel = polylines_kernel<kSharp, kFused, kC, kGlobal>;
+  cudaError_t err = cs::allow_dynamic_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  polylines_kernel<kSharp, kFused, kC>
-      <<<n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(x), static_cast<const float*>(co), sep,
-          static_cast<const float*>(colors), static_cast<float*>(out), w, c, samples, max_disp,
-          search_rounds(max_disp));
+  kernel<<<kGlobal ? ctas : p.n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
+// ctas > 0 takes the workspace instances (any C).
 template <bool kSharp, bool kFused>
-int launch(const void* x, const void* co, float sep, const void* colors, void* out, int n, int w,
-           int c, int samples, int max_disp, void* stream) {
-  return c == 3 ? launch_c<kSharp, kFused, 3>(x, co, sep, colors, out, n, w, c, samples,
-                                              max_disp, stream)
-                : launch_c<kSharp, kFused, 0>(x, co, sep, colors, out, n, w, c, samples,
-                                              max_disp, stream);
+int launch(const Params& p, int ctas, void* stream) {
+  if (p.n == 0 || p.w == 0) return 0;
+  if (p.c < 1 || p.k_cand < 1 || p.k_cand > kMaxK || p.samples < 1 || p.max_disp < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (ctas > 0) {
+    if (p.workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_kernel<kSharp, kFused, 0, true>(p, ctas, stream);
+  }
+  return p.c == 3 ? launch_kernel<kSharp, kFused, 3, false>(p, 0, stream)
+                  : launch_kernel<kSharp, kFused, 0, false>(p, 0, stream);
 }
 
-int check(int c, int samples, int k_candidates, int max_disp) {
-  if (c < 1 || c > 3 || k_candidates != kK || samples < 1 || max_disp < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return 0;
+Params params(const void* x, const void* coord, float sep, const void* colors, void* out,
+              void* workspace, int n, int w, int c, int samples, int k_candidates,
+              int max_disp) {
+  return Params{static_cast<const float*>(x), static_cast<const float*>(coord), sep,
+                static_cast<const float*>(colors), static_cast<float*>(out),
+                static_cast<float*>(workspace), n, w, c, samples, k_candidates, max_disp,
+                search_rounds(max_disp)};
 }
 
 }  // namespace
 
-// x, coord: [n, w] float32; colors, out: [n, w, c] float32 (HWC rows, c of 1
-// to 3); out receives the colour sums over `samples` sub-samples. k_candidates
-// must be 4. Returns the cudaError_t of the launch.
+// x, coord: [n, w] float32; colors, out: [n, w, c] float32 (HWC rows, any c
+// >= 1); out receives the colour sums over `samples` sub-samples.
+// k_candidates is K, 1 to 8. Rows whose planes fit in shared memory take
+// ctas = 0 and no workspace; wider ones a grid of `ctas` CTAs and a
+// workspace of ctas * row_words(w, samples) 4-byte words. Returns the
+// cudaError_t of the launch.
 extern "C" int cs_polylines_rows(const void* x, const void* coord, const void* colors,
-                                 void* out, int n, int w, int c, int sharp, int samples,
-                                 int k_candidates, int max_disp, void* stream) {
-  if (n == 0 || w == 0) return 0;
-  if (int err = check(c, samples, k_candidates, max_disp)) return err;
-  return sharp ? launch<true, false>(x, coord, 0.0f, colors, out, n, w, c, samples, max_disp,
-                                     stream)
-               : launch<false, false>(x, coord, 0.0f, colors, out, n, w, c, samples, max_disp,
-                                      stream);
+                                 void* out, void* workspace, int ctas, int n, int w, int c,
+                                 int sharp, int samples, int k_candidates, int max_disp,
+                                 void* stream) {
+  const Params p = params(x, coord, 0.0f, colors, out, workspace, n, w, c, samples,
+                          k_candidates, max_disp);
+  return sharp ? launch<true, false>(p, ctas, stream) : launch<false, false>(p, ctas, stream);
 }
 
 // The fused entry: x = ((col + 0.5) + coord) + sep is formed in the kernel
 // (sep the separation in pixels as float32), and out receives
 // trunc(clip(sum / samples + 0.5, 0, 255)). Otherwise as cs_polylines_rows.
 extern "C" int cs_polylines_coord(const void* coord, float sep, const void* colors, void* out,
-                                  int n, int w, int c, int sharp, int samples,
-                                  int k_candidates, int max_disp, void* stream) {
-  if (n == 0 || w == 0) return 0;
-  if (int err = check(c, samples, k_candidates, max_disp)) return err;
-  return sharp ? launch<true, true>(nullptr, coord, sep, colors, out, n, w, c, samples,
-                                    max_disp, stream)
-               : launch<false, true>(nullptr, coord, sep, colors, out, n, w, c, samples,
-                                     max_disp, stream);
+                                  void* workspace, int ctas, int n, int w, int c, int sharp,
+                                  int samples, int k_candidates, int max_disp, void* stream) {
+  const Params p = params(nullptr, coord, sep, colors, out, workspace, n, w, c, samples,
+                          k_candidates, max_disp);
+  return sharp ? launch<true, true>(p, ctas, stream) : launch<false, true>(p, ctas, stream);
 }

@@ -24,18 +24,24 @@
 //        piece center c of the column has col <= c <= col + 1, and a segment
 //        is active at c when x0 < c <= x1, so no segment that any piece
 //        activates is left out, and the list keeps the XLA path's order;
-//      - the breakpoints: the K smallest points in [col, col + 1), sorted in
-//        registers by a K-slot bubble insert (soft: x of each source in the
-//        walk; sharp: x - 0.45 and x + 0.45 of the listed flat tops, which
-//        hold every such point). Empty slots hold the right sentinel 2w;
-//        any value >= col + 1 acts as that sentinel does (it clips the piece
-//        to col + 1 and ends the chain), so the slots equal the XLA path's
-//        sorted points q0 .. q0 + K - 1;
+//      - the breakpoints: the smallest points in [col, col + 1), sorted in
+//        registers by a bubble insert into kCap slots (soft: x of each
+//        source in the walk; sharp: x - 0.45 and x + 0.45 of the listed
+//        flat tops, which hold every such point). Empty slots hold the
+//        right sentinel 2w; any value >= col + 1 acts as that sentinel does
+//        (it clips the piece to col + 1 and ends the chain), so the first K
+//        slots equal the XLA path's sorted points q0 .. q0 + K - 1 for any
+//        K <= kCap: an insert keeps the slots sorted, and the K smallest
+//        points are the first K slots of any longer array;
 //   3. pieces, with `_piece_geometry`'s forms: f = max(col, xq) + eps,
 //      t = min(col + 1, xq1) - eps, sig = t - f, center = f + 0.5 * sig;
 //      piece 0 starts at col + eps, and piece k > 0 is valid while
 //      xq < col + 1. Pieces past the first invalid one add 0.0 to an
-//      accumulator of at least 0.5 in the XLA path, so they are skipped;
+//      accumulator of at least 0.5 in the XLA path, so they are skipped.
+//      K = max_pieces (1 to 16, as the TPU kernel's static k_pieces) is a
+//      run-time bound of the piece loop; the slot count kCap is 12 for K up
+//      to 12 and 16 above (the TPU kernel likewise caps its piece loop per
+//      tile), so K = 12, the callers' value, runs the 12-slot code;
 //   4. winner scan per valid piece, in `_winner_scan_xla`'s order: the left
 //      sentinel, the right sentinel, then the list; strict `clp > best_cl`
 //      from best_cl = -eps among 0 < ip < 1, and the lowest-x0 active
@@ -47,6 +53,14 @@
 //      colour is built once, col_l * (1 - ip) + col_r * ip, or col_l for a
 //      flat segment;
 //   5. acc = 0.5 + sum over pieces of colour * sig, then trunc(clip(acc, 0, 255)).
+//      Colours go in groups of up to 3 channels: steps 3-5 run once per
+//      group (C of 1 to 3 is one group), so any C is taken with three
+//      accumulators.
+//
+// Rows up to 26,181 columns stage x, closeness and the block ranges in
+// shared memory, one row per CTA; wider rows keep them in a device-memory
+// workspace of one row per CTA (the kGlobal instances, whose CTAs walk rows
+// at a stride of the grid), and the lists stay in shared memory.
 //
 // Bound on Hopper: bytes, with operations close behind. Per pixel it moves
 // 28 bytes through the fused entry (offset and three colours in, three
@@ -69,7 +83,7 @@
 namespace {
 
 using cs::kThreads;
-constexpr int kPieces = 12;    // max_pieces, the K of the JAX package
+constexpr int kMaxPieces = 16;  // the largest max_pieces (K) the kernel takes
 constexpr int kListCap = 16;   // entries of a column's candidate list
 constexpr int kBlock = 32;     // columns per block of the m ranges (one warp)
 constexpr float kEps = 1e-7f;
@@ -119,12 +133,13 @@ struct Scan {
   }
 };
 
-__device__ __forceinline__ void insert(float (&slots)[kPieces], float pv, float colf,
+template <int kCap>
+__device__ __forceinline__ void insert(float (&slots)[kCap], float pv, float colf,
                                        float colp1) {
   if (!(pv >= colf && pv < colp1)) return;
   float carry = pv;
 #pragma unroll
-  for (int j = 0; j < kPieces; ++j) {
+  for (int j = 0; j < kCap; ++j) {
     const float s = slots[j];
     slots[j] = fminf(s, carry);
     carry = fmaxf(s, carry);
@@ -138,27 +153,49 @@ __device__ __forceinline__ void warp_min_max(float& lo, float& hi) {
   }
 }
 
-// kFused: a holds the signed offsets (coord) and x, cl are formed here;
-// otherwise a is x and b the closeness. kC: the channel count when it is 3
-// (the colour loops then unroll), 0 for a count taken from c. Five CTAs per
-// SM: ptxas then keeps 48 registers and spills a few bytes, which measured
-// faster than four CTAs at 61 registers.
-template <bool kSharp, bool kFused, int kC>
-__global__ void __launch_bounds__(kThreads, 5) polylines_exact_kernel(
-    const float* __restrict__ a, const float* __restrict__ b, float sep,
-    const float* __restrict__ colors, float* __restrict__ out, int w, int c_arg, int max_disp,
-    int list_cap, int* __restrict__ overflow) {
-  const int c = kC ? kC : c_arg;
-  extern __shared__ float smem[];
+struct Params {
+  const float* a;  // kFused: the signed offsets (coord); otherwise x
+  const float* b;  // the closeness (not kFused)
+  float sep;
+  const float* colors;
+  float* out;
+  float* workspace;  // kGlobal: row_words(w) words per CTA
+  int n, w, c, max_pieces, max_disp, list_cap;
+  int* overflow;
+};
+
+// 4-byte words of one row's staged planes: x, closeness, and the m range of
+// each 32-column block.
+__host__ __device__ inline size_t row_words(int w) {
+  const size_t nb = (static_cast<size_t>(w) + kBlock - 1) / kBlock;
+  return 2 * static_cast<size_t>(w) + 2 * nb;
+}
+
+// One row, its planes at `planes` (shared memory or the CTA's workspace),
+// the candidate lists at `s_list` in shared memory. kFused: a holds the
+// signed offsets (coord) and x, cl are formed here; otherwise a is x and b
+// the closeness. kC: the channel count when it is 3 (the colour loops then
+// unroll), 0 for a count taken from c. kCap: the breakpoint slots, at least
+// max_pieces.
+template <bool kSharp, bool kFused, int kC, int kCap>
+__device__ __forceinline__ void exact_row(const Params& p, long long row, float* planes,
+                                          int* s_list) {
+  const float* __restrict__ a = p.a;
+  const float* __restrict__ b = p.b;
+  const float sep = p.sep;
+  const float* __restrict__ colors = p.colors;
+  float* __restrict__ out = p.out;
+  const int w = p.w, max_pieces = p.max_pieces, max_disp = p.max_disp;
+  const int list_cap = p.list_cap;
+  int* __restrict__ overflow = p.overflow;
+  const int c = kC ? kC : p.c;
   const int nb = (w + kBlock - 1) / kBlock;
-  float* s_x = smem;
+  float* s_x = planes;
   float* s_cl = s_x + w;
   float* s_bmin = s_cl + w;  // per 32-column block: min and max of m
   float* s_bmax = s_bmin + nb;
-  int* s_list = reinterpret_cast<int*>(s_bmax + nb);  // entry j of thread t at j * kThreads + t
   __shared__ float s_red[2 * cs::kThreads / 32];
 
-  const long long row = blockIdx.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const float hw = kSharp ? 0.45f : 0.0f;
 
@@ -222,9 +259,9 @@ __global__ void __launch_bounds__(kThreads, 5) polylines_exact_kernel(
     const float colp1 = colf + 1.0f;
 
     // 2. One walk: breakpoints, and the candidate list.
-    float slots[kPieces];
+    float slots[kCap];
 #pragma unroll
-    for (int j = 0; j < kPieces; ++j) slots[j] = sent_r;
+    for (int j = 0; j < kCap; ++j) slots[j] = sent_r;
     int n = 0, first_cp = w, last_cp = -1;
     const int cp0 = max(col + dl, 0), cp1 = min(col + dh, w - 1);
     float prev_hi = 0.0f;  // x + hw of source cp - 1
@@ -271,130 +308,160 @@ __global__ void __launch_bounds__(kThreads, 5) polylines_exact_kernel(
       }
     }
 
-    float acc[3] = {0.5f, 0.5f, 0.5f};
+    // 3-5 for each group of up to 3 channels.
+    for (int g0 = 0; g0 < c; g0 += 3) {
+      const float* gimg = img + g0;
+      float acc[3] = {0.5f, 0.5f, 0.5f};
 #pragma unroll
-    for (int k = 0; k < kPieces; ++k) {
-      // 3. Piece geometry.
-      float f;
-      if (k == 0) {
-        f = colf + kEps;
-      } else {
-        const float xq = slots[k - 1];
-        if (!(xq < colp1)) break;
-        f = fmaxf(colf, xq) + kEps;
-      }
-      const float t = fminf(colp1, slots[k]) - kEps;
-      const float sig = t - f;
-      const float center = f + 0.5f * sig;
-
-      // 4. Winner scan at the piece's center.
-      Scan s;
-      s.consider(center, sent_l, first_x, 0.0f, cl_first, 0, true);
-      s.consider(center, last_x, sent_r, cl_last, 0.0f, w - 1, true);
-      if (listed) {
-        for (int j = 0; j < n; ++j) {
-          const int code = list[j * kThreads];
-          s.consider_source(center, s_x, s_cl, code >> 1, code & 1, hw);
+      for (int k = 0; k < kCap; ++k) {
+        // 3. Piece geometry.
+        if (k >= max_pieces) break;
+        float f;
+        if (k == 0) {
+          f = colf + kEps;
+        } else {
+          const float xq = slots[k - 1];
+          if (!(xq < colp1)) break;
+          f = fmaxf(colf, xq) + kEps;
         }
-      } else {
-        for (int cp = first_cp; cp <= last_cp; ++cp) {
-          if (kSharp) s.consider_source(center, s_x, s_cl, cp, true, hw);
-          if (cp <= w - 2) s.consider_source(center, s_x, s_cl, cp, false, hw);
-        }
-      }
-      const Winner win = s.best_cl > -kEps ? s.best : s.fb;
+        const float t = fminf(colp1, slots[k]) - kEps;
+        const float sig = t - f;
+        const float center = f + 0.5f * sig;
 
-      // 5. Accumulate the winner's colour over the piece.
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch) {
-        if (ch >= c) break;
-        float cval = 0.0f;
-        if (win.id >= 0) {
-          const float col_l = img[static_cast<long long>(win.id) * c + ch];
-          if (win.flat) {
-            cval = col_l;
-          } else {
-            const float col_r = img[static_cast<long long>(win.id + 1) * c + ch];
-            cval = col_l * (1.0f - win.ip) + col_r * win.ip;
+        // 4. Winner scan at the piece's center.
+        Scan s;
+        s.consider(center, sent_l, first_x, 0.0f, cl_first, 0, true);
+        s.consider(center, last_x, sent_r, cl_last, 0.0f, w - 1, true);
+        if (listed) {
+          for (int j = 0; j < n; ++j) {
+            const int code = list[j * kThreads];
+            s.consider_source(center, s_x, s_cl, code >> 1, code & 1, hw);
+          }
+        } else {
+          for (int cp = first_cp; cp <= last_cp; ++cp) {
+            if (kSharp) s.consider_source(center, s_x, s_cl, cp, true, hw);
+            if (cp <= w - 2) s.consider_source(center, s_x, s_cl, cp, false, hw);
           }
         }
-        acc[ch] = acc[ch] + cval * sig;
-      }
-    }
-    float* o = out + (row * w + col) * c;
+        const Winner win = s.best_cl > -kEps ? s.best : s.fb;
+
+        // 5. Accumulate the winner's colour over the piece.
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      if (ch >= c) break;
-      o[ch] = truncf(fminf(fmaxf(acc[ch], 0.0f), 255.0f));
+        for (int ch = 0; ch < 3; ++ch) {
+          if (g0 + ch >= c) break;
+          float cval = 0.0f;
+          if (win.id >= 0) {
+            const float col_l = gimg[static_cast<long long>(win.id) * c + ch];
+            if (win.flat) {
+              cval = col_l;
+            } else {
+              const float col_r = gimg[static_cast<long long>(win.id + 1) * c + ch];
+              cval = col_l * (1.0f - win.ip) + col_r * win.ip;
+            }
+          }
+          acc[ch] = acc[ch] + cval * sig;
+        }
+      }
+      float* o = out + (row * w + col) * c + g0;
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        if (g0 + ch >= c) break;
+        o[ch] = truncf(fminf(fmaxf(acc[ch], 0.0f), 255.0f));
+      }
     }
   }
 }
 
-size_t smem_bytes(int w) {
-  const size_t nb = (static_cast<size_t>(w) + kBlock - 1) / kBlock;
-  return (2 * static_cast<size_t>(w) + 2 * nb) * sizeof(float) +
-         static_cast<size_t>(kListCap) * kThreads * sizeof(int);
+// kGlobal: the staged planes live in the workspace, and each CTA renders
+// rows blockIdx.x, blockIdx.x + gridDim.x, ...; otherwise one row per CTA
+// with them in shared memory. Five CTAs per SM: ptxas then keeps 48
+// registers and spills a few bytes, which measured faster than four CTAs
+// at 61 registers.
+template <bool kSharp, bool kFused, int kC, int kCap, bool kGlobal>
+__global__ void __launch_bounds__(kThreads, 5) polylines_exact_kernel(Params p) {
+  // The planes (unless kGlobal), then the lists: entry j of thread t at
+  // j * kThreads + t.
+  extern __shared__ float smem[];
+  if (!kGlobal) {
+    exact_row<kSharp, kFused, kC, kCap>(p, blockIdx.x, smem,
+                                        reinterpret_cast<int*>(smem + row_words(p.w)));
+    return;
+  }
+  float* planes = p.workspace + blockIdx.x * row_words(p.w);
+  for (int row = blockIdx.x; row < p.n; row += gridDim.x) {
+    exact_row<kSharp, kFused, kC, kCap>(p, row, planes, reinterpret_cast<int*>(smem));
+    __syncthreads();  // the next row overwrites the planes and the lists
+  }
 }
 
-template <bool kSharp, bool kFused, int kC>
-int launch_c(const void* a, const void* b, float sep, const void* colors, void* out, int n,
-             int w, int c, int max_disp, int list_cap, void* overflow, void* stream) {
-  const size_t smem = smem_bytes(w);
-  cudaError_t err = cs::allow_dynamic_smem(polylines_exact_kernel<kSharp, kFused, kC>, smem);
+// Shared memory of a CTA: the lists, and the staged planes unless kGlobal.
+size_t smem_bytes(int w, bool global) {
+  return static_cast<size_t>(kListCap) * kThreads * sizeof(int) +
+         (global ? 0 : row_words(w) * sizeof(float));
+}
+
+template <bool kSharp, bool kFused, int kC, int kCap, bool kGlobal>
+int launch_kernel(const Params& p, int ctas, void* stream) {
+  const size_t smem = smem_bytes(p.w, kGlobal);
+  auto kernel = polylines_exact_kernel<kSharp, kFused, kC, kCap, kGlobal>;
+  cudaError_t err = cs::allow_dynamic_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  polylines_exact_kernel<kSharp, kFused, kC>
-      <<<n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(a), static_cast<const float*>(b), sep,
-          static_cast<const float*>(colors), static_cast<float*>(out), w, c, max_disp,
-          list_cap, static_cast<int*>(overflow));
+  kernel<<<kGlobal ? ctas : p.n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kSharp, bool kFused>
-int launch(const void* a, const void* b, float sep, const void* colors, void* out, int n, int w,
-           int c, int max_disp, int list_cap, void* overflow, void* stream) {
-  return c == 3 ? launch_c<kSharp, kFused, 3>(a, b, sep, colors, out, n, w, c, max_disp,
-                                              list_cap, overflow, stream)
-                : launch_c<kSharp, kFused, 0>(a, b, sep, colors, out, n, w, c, max_disp,
-                                              list_cap, overflow, stream);
+// K up to 12 runs the 12-slot instance, 13 to 16 the 16-slot one. ctas > 0
+// takes the workspace instances (any C).
+template <bool kSharp, bool kFused, int kCap>
+int launch_cap(const Params& p, int ctas, void* stream) {
+  if (ctas > 0) {
+    if (p.workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_kernel<kSharp, kFused, 0, kCap, true>(p, ctas, stream);
+  }
+  return p.c == 3 ? launch_kernel<kSharp, kFused, 3, kCap, false>(p, 0, stream)
+                  : launch_kernel<kSharp, kFused, 0, kCap, false>(p, 0, stream);
 }
 
-int check(int c, int max_pieces, int list_cap) {
-  if (c < 1 || c > 3 || max_pieces != kPieces || list_cap < 0 || list_cap > kListCap) {
+template <bool kSharp, bool kFused>
+int launch(const Params& p, int ctas, void* stream) {
+  if (p.n == 0 || p.w == 0) return 0;
+  if (p.c < 1 || p.max_pieces < 1 || p.max_pieces > kMaxPieces || p.list_cap < 0 ||
+      p.list_cap > kListCap) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return 0;
+  return p.max_pieces <= 12 ? launch_cap<kSharp, kFused, 12>(p, ctas, stream)
+                            : launch_cap<kSharp, kFused, kMaxPieces>(p, ctas, stream);
 }
 
 }  // namespace
 
-// x, cl: [n, w] float32; colors, out: [n, w, c] float32 (HWC rows, c of 1 to
-// 3); max_pieces must be 12; list_cap (0 to 16) is the candidate lists'
+// x, cl: [n, w] float32; colors, out: [n, w, c] float32 (HWC rows, any c >=
+// 1); max_pieces is K, 1 to 16; list_cap (0 to 16) is the candidate lists'
 // capacity; overflow (int, or null) counts the columns that outgrew it.
+// Rows of up to 26,181 columns take ctas = 0 and no workspace; wider ones a
+// grid of `ctas` CTAs and a workspace of ctas * row_words(w) 4-byte words.
 // Returns the cudaError_t of the launch.
 extern "C" int cs_polylines_exact_rows(const void* x, const void* cl, const void* colors,
-                                       void* out, int n, int w, int c, int sharp,
-                                       int max_pieces, int max_disp, int list_cap,
-                                       void* overflow, void* stream) {
-  if (n == 0 || w == 0) return 0;
-  if (int err = check(c, max_pieces, list_cap)) return err;
-  return sharp ? launch<true, false>(x, cl, 0.0f, colors, out, n, w, c, max_disp, list_cap,
-                                     overflow, stream)
-               : launch<false, false>(x, cl, 0.0f, colors, out, n, w, c, max_disp, list_cap,
-                                      overflow, stream);
+                                       void* out, void* workspace, int ctas, int n, int w,
+                                       int c, int sharp, int max_pieces, int max_disp,
+                                       int list_cap, void* overflow, void* stream) {
+  const Params p{static_cast<const float*>(x), static_cast<const float*>(cl), 0.0f,
+                 static_cast<const float*>(colors), static_cast<float*>(out),
+                 static_cast<float*>(workspace), n, w, c, max_pieces, max_disp, list_cap,
+                 static_cast<int*>(overflow)};
+  return sharp ? launch<true, false>(p, ctas, stream) : launch<false, false>(p, ctas, stream);
 }
 
 // The fused entry: coord [n, w] float32 signed offsets, sep the separation
 // in pixels as float32; x = ((col + 0.5) + coord) + sep and cl = |coord|
 // are formed in the kernel. Otherwise as cs_polylines_exact_rows.
 extern "C" int cs_polylines_exact_coord(const void* coord, float sep, const void* colors,
-                                        void* out, int n, int w, int c, int sharp,
-                                        int max_pieces, int max_disp, int list_cap,
-                                        void* overflow, void* stream) {
-  if (n == 0 || w == 0) return 0;
-  if (int err = check(c, max_pieces, list_cap)) return err;
-  return sharp ? launch<true, true>(coord, nullptr, sep, colors, out, n, w, c, max_disp,
-                                    list_cap, overflow, stream)
-               : launch<false, true>(coord, nullptr, sep, colors, out, n, w, c, max_disp,
-                                     list_cap, overflow, stream);
+                                        void* out, void* workspace, int ctas, int n, int w,
+                                        int c, int sharp, int max_pieces, int max_disp,
+                                        int list_cap, void* overflow, void* stream) {
+  const Params p{static_cast<const float*>(coord), nullptr, sep,
+                 static_cast<const float*>(colors), static_cast<float*>(out),
+                 static_cast<float*>(workspace), n, w, c, max_pieces, max_disp, list_cap,
+                 static_cast<int*>(overflow)};
+  return sharp ? launch<true, true>(p, ctas, stream) : launch<false, true>(p, ctas, stream);
 }

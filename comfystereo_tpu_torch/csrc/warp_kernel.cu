@@ -51,10 +51,14 @@
 // (column, segment) pair with the column in the segment's interval adds its
 // d to the window of the column's warp.
 //
-// Shared memory: 20 B per column (dl, nd, interval, src, z) and one bit;
-// 38,704 B per CTA at W = 1920, so 5 CTAs (40 warps) per SM, and rows up to
-// 11,547 columns (`kernels/warp_kernel.py:smem_bytes`, checked by the
-// wrapper and again here). Bound on Hopper: bytes, 29 B per pixel through
+// Planes: 20 B per column (dl, nd, interval, src, z) and one bit; 38,704 B
+// per CTA at W = 1920, so 5 CTAs (40 warps) per SM. Rows up to 11,547
+// columns hold them in shared memory, one row per CTA
+// (`kernels/warp_kernel.py:smem_bytes`); wider rows, up to 65,536 columns
+// (the interval packs a column into 16 bits), hold them in a device-memory
+// workspace of one row per CTA, and each CTA walks rows at a stride of the
+// grid (the kGlobal instances; L2 and L1 hold a CTA's row). Colours are any
+// C: the taps loop over the channels. Bound on Hopper: bytes, 29 B per pixel through
 // the fused entry in float32 (depth 4, colour 12 in and 12 out, gap 1), 17 B
 // in bfloat16. Built with -fmad=false so zz, the offsets, the gap
 // interpolation and the lerp round as the plain version does; division and
@@ -77,9 +81,11 @@ constexpr float kMargin = 9.5367431640625e-07f;  // 2^-20
 constexpr size_t kSmemLimit = 232448;  // what one CTA may opt in to on sm_90
 constexpr size_t kStaticSmem = 2 * kWarps * sizeof(float);  // s_red
 
-// Dynamic shared memory of one CTA: five planes and one bit per column.
-__host__ __device__ inline size_t dynamic_smem(int w) {
-  return 20 * static_cast<size_t>(w) + 4 * static_cast<size_t>((w + 31) / 32);
+constexpr int kMaxWidth = 65536;  // the interval packs a column into 16 bits
+
+// 4-byte words of one row's planes: five planes and one bit per column.
+__host__ __device__ inline size_t plane_words(int w) {
+  return 5 * static_cast<size_t>(w) + static_cast<size_t>((w + 31) / 32);
 }
 
 __device__ __forceinline__ float load_color(const float* p) { return __ldg(p); }
@@ -105,7 +111,8 @@ struct Args {
   const void* image;  // [n, w, c]
   void* out;          // [n, w, c]
   unsigned char* gap;  // [n, w]
-  int w, c;
+  float* workspace;    // kGlobal: plane_words(w) words per CTA
+  int n, w, c;
   float gradient_threshold;
   int max_stretch, max_disp;
 };
@@ -137,12 +144,12 @@ __device__ __forceinline__ unsigned interval(int x, int w, float dl, float dr, f
   return static_cast<unsigned>(lo) | (static_cast<unsigned>(hi) << 16);
 }
 
+// One row, its planes at `planes` (shared memory or the CTA's workspace).
 template <typename T, bool kFused>
-__global__ void __launch_bounds__(kThreads, 5) warp_rows_kernel(Args a) {
-  extern __shared__ __align__(16) float smem[];
+__device__ __forceinline__ void warp_row(const Args& a, int row, float* planes) {
   const int w = a.w;
   const int n_words = (w + 31) / 32;
-  float* s_dl = smem;
+  float* s_dl = planes;
   float* s_nd = s_dl + w;
   unsigned* s_iv = reinterpret_cast<unsigned*>(s_nd + w);
   float* s_src = reinterpret_cast<float*>(s_iv + w);
@@ -150,7 +157,6 @@ __global__ void __launch_bounds__(kThreads, 5) warp_rows_kernel(Args a) {
   unsigned* s_filled = reinterpret_cast<unsigned*>(s_z + w);
   __shared__ float s_red[2 * kWarps];
 
-  const int row = blockIdx.x;
   const long long at0 = static_cast<long long>(row) * w;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int c = a.c;
@@ -294,25 +300,54 @@ __global__ void __launch_bounds__(kThreads, 5) warp_rows_kernel(Args a) {
   }
 }
 
+// kGlobal: the planes live in the workspace, and each CTA warps rows
+// blockIdx.x, blockIdx.x + gridDim.x, ...; otherwise one row per CTA with
+// its planes in shared memory.
+template <typename T, bool kFused, bool kGlobal>
+__global__ void __launch_bounds__(kThreads, 5) warp_rows_kernel(Args a) {
+  extern __shared__ __align__(16) float smem[];
+  if (!kGlobal) {
+    warp_row<T, kFused>(a, blockIdx.x, smem);
+    return;
+  }
+  float* planes = a.workspace + blockIdx.x * plane_words(a.w);
+  for (int row = blockIdx.x; row < a.n; row += gridDim.x) {
+    warp_row<T, kFused>(a, row, planes);
+    __syncthreads();  // the next row overwrites the planes
+  }
+}
+
+// ctas: the grid of the kGlobal instances (each with plane_words(w) words
+// of workspace); 0 when the planes fit in shared memory.
 template <typename T, bool kFused>
-int launch(const Args& a, int n, void* stream) {
-  if (n == 0 || a.w == 0) return 0;
-  const size_t smem = dynamic_smem(a.w);
+int launch(const Args& a, int ctas, void* stream) {
+  if (a.n == 0 || a.w == 0) return 0;
+  if (a.w > kMaxWidth) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ctas > 0) {
+    if (a.workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    warp_rows_kernel<T, kFused, true><<<ctas, kThreads, 0, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t smem = 4 * plane_words(a.w);
   if (smem + kStaticSmem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cs::allow_dynamic_smem(warp_rows_kernel<T, kFused>, smem);
+  cudaError_t err = cs::allow_dynamic_smem(warp_rows_kernel<T, kFused, false>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  warp_rows_kernel<T, kFused><<<n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  warp_rows_kernel<T, kFused, false><<<a.n, kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 Args rows_args(const void* offset, const void* nd, const void* image, void* out, void* gap,
-               int w, int c, float gradient_threshold, int max_stretch, int max_disp) {
+               void* workspace, int n, int w, int c, float gradient_threshold,
+               int max_stretch, int max_disp) {
   Args a{};
   a.offset = static_cast<const float*>(offset);
   a.nd = static_cast<const float*>(nd);
   a.image = image;
   a.out = out;
   a.gap = static_cast<unsigned char*>(gap);
+  a.workspace = static_cast<float*>(workspace);
+  a.n = n;
   a.w = w;
   a.c = c;
   a.gradient_threshold = gradient_threshold;
@@ -322,11 +357,11 @@ Args rows_args(const void* offset, const void* nd, const void* image, void* out,
 }
 
 Args depth_args(const void* depth, const void* dmin, const void* dmax, const void* image,
-                void* out, void* gap, int w, int c, int height, float divergence,
-                float separation, float exponent, int pow_mode, float convergence,
-                float gradient_threshold, int max_stretch, int max_disp) {
-  Args a = rows_args(nullptr, nullptr, image, out, gap, w, c, gradient_threshold,
-                     max_stretch, max_disp);
+                void* out, void* gap, void* workspace, int n, int w, int c, int height,
+                float divergence, float separation, float exponent, int pow_mode,
+                float convergence, float gradient_threshold, int max_stretch, int max_disp) {
+  Args a = rows_args(nullptr, nullptr, image, out, gap, workspace, n, w, c,
+                     gradient_threshold, max_stretch, max_disp);
   a.depth = static_cast<const float*>(depth);
   a.dmin = static_cast<const float*>(dmin);
   a.dmax = static_cast<const float*>(dmax);
@@ -341,51 +376,57 @@ Args depth_args(const void* depth, const void* dmin, const void* dmax, const voi
 
 }  // namespace
 
-// offset, nd: [n, w] float32; image, out: [n, w, c] colour (HWC rows);
-// gap: [n, w] bool (one byte each). Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for a row wider than shared memory holds).
+// offset, nd: [n, w] float32; image, out: [n, w, c] colour (HWC rows, any
+// c >= 1); gap: [n, w] bool (one byte each). Rows of up to 11,547 columns
+// take ctas = 0 and no workspace; wider ones, up to 65,536 columns, a grid
+// of `ctas` CTAs and a workspace of ctas * plane_words(w) 4-byte words.
+// Returns the cudaError_t of the launch (cudaErrorInvalidValue for a row
+// that neither fits).
 extern "C" int cs_warp_rows_f32(const void* offset, const void* nd, const void* image,
-                                void* out, void* gap, int n, int w, int c,
-                                float gradient_threshold, int max_stretch, int max_disp,
+                                void* out, void* gap, void* workspace, int ctas, int n, int w,
+                                int c, float gradient_threshold, int max_stretch, int max_disp,
                                 void* stream) {
-  return launch<float, false>(rows_args(offset, nd, image, out, gap, w, c,
+  return launch<float, false>(rows_args(offset, nd, image, out, gap, workspace, n, w, c,
                                         gradient_threshold, max_stretch, max_disp),
-                              n, stream);
+                              ctas, stream);
 }
 
 extern "C" int cs_warp_rows_bf16(const void* offset, const void* nd, const void* image,
-                                 void* out, void* gap, int n, int w, int c,
-                                 float gradient_threshold, int max_stretch, int max_disp,
-                                 void* stream) {
-  return launch<__nv_bfloat16, false>(rows_args(offset, nd, image, out, gap, w, c,
-                                                gradient_threshold, max_stretch, max_disp),
-                                      n, stream);
+                                 void* out, void* gap, void* workspace, int ctas, int n, int w,
+                                 int c, float gradient_threshold, int max_stretch,
+                                 int max_disp, void* stream) {
+  return launch<__nv_bfloat16, false>(rows_args(offset, nd, image, out, gap, workspace, n, w,
+                                                c, gradient_threshold, max_stretch,
+                                                max_disp),
+                                      ctas, stream);
 }
 
 // The fused entry: depth [n, w] float32 (rows of n / height images), dmin
 // and dmax [n / height] float32; pow_mode from kernels/_common.py:pow_mode.
 extern "C" int cs_warp_rows_depth_f32(const void* depth, const void* dmin, const void* dmax,
-                                      const void* image, void* out, void* gap, int n, int w,
-                                      int c, int height, float divergence, float separation,
+                                      const void* image, void* out, void* gap,
+                                      void* workspace, int ctas, int n, int w, int c,
+                                      int height, float divergence, float separation,
                                       float exponent, int pow_mode, float convergence,
                                       float gradient_threshold, int max_stretch, int max_disp,
                                       void* stream) {
-  return launch<float, true>(depth_args(depth, dmin, dmax, image, out, gap, w, c, height,
-                                        divergence, separation, exponent, pow_mode,
-                                        convergence, gradient_threshold, max_stretch,
-                                        max_disp),
-                             n, stream);
+  return launch<float, true>(depth_args(depth, dmin, dmax, image, out, gap, workspace, n, w,
+                                        c, height, divergence, separation, exponent,
+                                        pow_mode, convergence, gradient_threshold,
+                                        max_stretch, max_disp),
+                             ctas, stream);
 }
 
 extern "C" int cs_warp_rows_depth_bf16(const void* depth, const void* dmin, const void* dmax,
-                                       const void* image, void* out, void* gap, int n, int w,
-                                       int c, int height, float divergence, float separation,
+                                       const void* image, void* out, void* gap,
+                                       void* workspace, int ctas, int n, int w, int c,
+                                       int height, float divergence, float separation,
                                        float exponent, int pow_mode, float convergence,
                                        float gradient_threshold, int max_stretch,
                                        int max_disp, void* stream) {
-  return launch<__nv_bfloat16, true>(depth_args(depth, dmin, dmax, image, out, gap, w, c,
-                                                height, divergence, separation, exponent,
-                                                pow_mode, convergence, gradient_threshold,
-                                                max_stretch, max_disp),
-                                     n, stream);
+  return launch<__nv_bfloat16, true>(depth_args(depth, dmin, dmax, image, out, gap, workspace,
+                                                n, w, c, height, divergence, separation,
+                                                exponent, pow_mode, convergence,
+                                                gradient_threshold, max_stretch, max_disp),
+                                     ctas, stream);
 }

@@ -20,6 +20,7 @@ from .clip_text import (SD15_TEXT_CONFIG, SD21_TEXT_CONFIG,  # noqa: F401
                         TINY_TEXT_CONFIG, CLIPTextConfig, CLIPTextModel,
                         NativeCLIPTextEncoder)
 from .clip_tokenizer import CLIPBPETokenizer  # noqa: F401
+from .helpers import diffusion_step, diffusion_step_no_cfg, init_latent  # noqa: F401
 from .inversion import InversionResult, invert  # noqa: F401
 from .models import (LATENT_SCALE, DiffusionModel, HashTextEncoder,  # noqa: F401
                      LatentUNet, SimpleVAE, UNetConfig, make_toy_model)

@@ -18,7 +18,8 @@ callers decide whether to fall back (the StereoDiffusion node falls back to
 the toy model loudly, printing the trail).
 
 Bundles are cached in the port's one model cache (`utils.caching`, cleared
-by its `clear_model_cache`) per id and scheduler (``"{id}:{scheduler}"``,
+by its `clear_model_cache`, which this module re-exports as the JAX
+package's loader has its own) per id and scheduler (``"{id}:{scheduler}"``,
 or ``"{id}:inpaint"``) as the JAX package keys them, with the device
 appended, so one process may hold a CPU and a CUDA bundle of one
 checkpoint.
@@ -31,7 +32,7 @@ from typing import List, Optional
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..utils.caching import get_or_load_model
+from ..utils.caching import clear_model_cache, get_or_load_model  # noqa: F401
 
 # Only the files the port reads: the safetensors of unet/vae/text_encoder,
 # their configs, and the tokenizer vocab.

@@ -249,12 +249,12 @@ def normalize_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, torch.Tenso
     return out
 
 
-def check_port(model_state: Mapping[str, Any], ported: Mapping[str, Any]) -> None:
+def check_port(reference_params: Mapping[str, Any], ported_params: Mapping[str, Any]) -> None:
     """Raise ValueError listing every key missing from or unexpected in
-    `ported`, and every shape that differs from `model_state`'s (the
-    module's own state dict, e.g. built on the meta device)."""
-    ref = {k: tuple(v.shape) for k, v in model_state.items()}
-    got = {k: tuple(v.shape) for k, v in ported.items()}
+    `ported_params`, and every shape that differs from `reference_params`'
+    (the module's own state dict, e.g. built on the meta device)."""
+    ref = {k: tuple(v.shape) for k, v in reference_params.items()}
+    got = {k: tuple(v.shape) for k, v in ported_params.items()}
     problems = []
     for k in sorted(set(ref) | set(got)):
         if k not in got:
@@ -497,12 +497,13 @@ def build_sd_model(unet_cfg=None, vae_cfg=None, dtype: torch.dtype = torch.float
                    unet_state: Optional[Mapping[str, torch.Tensor]] = None,
                    vae_state: Optional[Mapping[str, torch.Tensor]] = None,
                    text_encode: Optional[Callable] = None,
-                   weight_quant: bool = False) -> DiffusionModel:
+                   weight_quant: bool = False, init_mode: str = "random") -> DiffusionModel:
     """Assemble a `DiffusionModel` from `SDUNet` and `SDVAE`.
 
     Weights: the given state dicts (e.g. from `state_dict_from_jax` or a
     checkpoint), else seeded random weights (`random_init_`, UNet from
-    `seed`, VAE from `seed + 1`). Parameters are cast to `dtype`; the apply
+    `seed`, VAE from `seed + 1`), or zeros with init_mode="zeros" (the JAX
+    package's mode for shape and speed checks). Parameters are cast to `dtype`; the apply
     functions cast their inputs to `dtype` and return float32, so
     `dtype=torch.bfloat16` is the JAX package's mixed-precision mode
     (scheduler math, masks and the latent scale stay float32). With
@@ -511,12 +512,18 @@ def build_sd_model(unet_cfg=None, vae_cfg=None, dtype: torch.dtype = torch.float
     bf16, the same API; a UNet quantised further by the caller keeps its
     w8 layers. `device=None` means CUDA.
     """
+    if init_mode not in ("random", "zeros"):
+        raise ValueError(f"build_sd_model: init_mode {init_mode!r} not in ('random', 'zeros')")
     dev = resolve_device(device)
     unet_cfg = unet_cfg or SD15_UNET_CONFIG
     vae_cfg = vae_cfg or SD_VAE_CONFIG
     unet, vae = _empty_module(SDUNet, unet_cfg), _empty_module(SDVAE, vae_cfg)
     for module, state, s in ((unet, unet_state, seed), (vae, vae_state, seed + 1)):
-        if state is None:
+        if state is None and init_mode == "zeros":
+            with torch.no_grad():
+                for p in module.parameters():
+                    p.zero_()
+        elif state is None:
             random_init_(module, s)
         else:
             module.load_state_dict(state)
@@ -554,15 +561,17 @@ def _find_safetensors(d: str, names=("diffusion_pytorch_model.safetensors",
 
 
 def load_sd_from_diffusers_dir(model_dir: str, unet_cfg=None, vae_cfg=None,
+                               text_encode: Optional[Callable] = None,
                                dtype: Optional[torch.dtype] = None,
                                device: DeviceLike = None) -> DiffusionModel:
     """Load a diffusers-layout directory (unet/ + vae/ + text_encoder/ +
     tokenizer/) into a `build_sd_model` bundle on `device` (None means
     CUDA), in `dtype` (None: float32), each state dict checked against its
-    module's own. Configs are inferred from the shapes unless given. The
-    checkpoint's own CLIP and BPE vocab condition the prompts; the
-    `HashTextEncoder` stand-in is used only when the directory lacks
-    text_encoder/ or tokenizer/."""
+    module's own. Configs are inferred from the shapes unless given. A
+    caller's `text_encode` conditions the prompts in place of the
+    directory's CLIP, which is then not read; otherwise the checkpoint's own
+    CLIP and BPE vocab do, and the `HashTextEncoder` stand-in is used only
+    when the directory lacks text_encoder/ or tokenizer/."""
     def load(sub):
         path = _find_safetensors(os.path.join(model_dir, sub))
         if path is None:
@@ -577,10 +586,11 @@ def load_sd_from_diffusers_dir(model_dir: str, unet_cfg=None, vae_cfg=None,
     check_port(_meta_state(SDUNet, unet_cfg), unet_sd)
     check_port(_meta_state(SDVAE, vae_cfg), vae_sd)
 
-    text_encode = load_clip_text_from_dir(model_dir, dtype=dtype, device=dev)
     if text_encode is None:
-        print(f"[comfystereo-tpu] {model_dir} has no text_encoder/ + "
-              "tokenizer/; prompts fall back to the hash-stub embedding")
+        text_encode = load_clip_text_from_dir(model_dir, dtype=dtype, device=dev)
+        if text_encode is None:
+            print(f"[comfystereo-tpu] {model_dir} has no text_encoder/ + "
+                  "tokenizer/; prompts fall back to the hash-stub embedding")
     return build_sd_model(unet_cfg, vae_cfg, dtype=dtype or torch.float32, device=dev,
                           unet_state=unet_sd, vae_state=vae_sd, text_encode=text_encode)
 

@@ -225,14 +225,17 @@ class Transformer2D(nn.Module):
 
 class ResnetBlock2D(nn.Module):
     """GN -> silu -> conv1 (+ time_emb_proj(silu(temb))) -> GN -> silu ->
-    conv2, plus a 1x1 shortcut when the channel count changes."""
+    conv2, plus a 1x1 shortcut when the channel count changes. The time
+    projection exists when `use_temb` and `temb_dim` (the embedding's width,
+    which flax infers) is given."""
 
-    def __init__(self, in_ch: int, out_ch: int, norm_groups: int,
-                 temb_dim: Optional[int] = None, eps: float = 1e-5):
+    def __init__(self, in_ch: int, out_channels: int, norm_groups: int,
+                 temb_dim: Optional[int] = None, eps: float = 1e-5, use_temb: bool = True):
         super().__init__()
+        out_ch = out_channels
         self.norm1 = GroupNorm(norm_groups, in_ch, eps)
         self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
-        if temb_dim is not None:
+        if use_temb and temb_dim is not None:
             self.time_emb_proj = nn.Linear(temb_dim, out_ch)
         self.norm2 = GroupNorm(norm_groups, out_ch, eps)
         self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
@@ -250,12 +253,13 @@ class ResnetBlock2D(nn.Module):
 
 
 class Downsample2D(nn.Module):
-    """3x3 stride-2 conv; `pad` = (left, right, top, bottom): (1, 1, 1, 1) in
-    the UNet, (0, 1, 0, 1) in the VAE."""
+    """3x3 stride-2 conv; `padding` = ((top, bottom), (left, right)), as
+    flax's: ((1, 1), (1, 1)) in the UNet, ((0, 1), (0, 1)) in the VAE."""
 
-    def __init__(self, channels: int, pad=(1, 1, 1, 1)):
+    def __init__(self, channels: int, padding=((1, 1), (1, 1))):
         super().__init__()
-        self.pad = pad
+        (top, bottom), (left, right) = padding
+        self.pad = (left, right, top, bottom)  # F.pad's order
         self.conv = nn.Conv2d(channels, channels, 3, stride=2)
 
     def forward(self, x):

@@ -83,7 +83,7 @@ class _DownEncoderBlock(nn.Module):
             _vae_resnet(in_ch if j == 0 else out_ch, out_ch, norm_groups)
             for j in range(num_layers)])
         if add_downsample:
-            self.downsamplers = nn.ModuleList([Downsample2D(out_ch, pad=(0, 1, 0, 1))])
+            self.downsamplers = nn.ModuleList([Downsample2D(out_ch, padding=((0, 1), (0, 1)))])
 
     def forward(self, x):
         for res in self.resnets:

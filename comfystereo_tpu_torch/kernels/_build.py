@@ -41,27 +41,25 @@ _F = ctypes.c_float
 # pointer and the stream (a plain int would cut a 64-bit pointer).
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "distance": {
-        "cs_edge_distances": [_P, _P, _P, _P, _I, _I, _P],
-        "cs_edge_weights": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P],
+        "cs_edge_distances": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "cs_edge_weights": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _P],
     },
     "warp_kernel": {
-        "cs_warp_rows_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
-        "cs_warp_rows_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
-        "cs_warp_rows_depth_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I,
-                                   _F, _F, _I, _I, _P],
-        "cs_warp_rows_depth_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I,
-                                    _F, _F, _I, _I, _P],
+        "cs_warp_rows_f32": [_P] * 6 + [_I] * 4 + [_F, _I, _I, _P],
+        "cs_warp_rows_bf16": [_P] * 6 + [_I] * 4 + [_F, _I, _I, _P],
+        "cs_warp_rows_depth_f32": [_P] * 7 + [_I] * 5 + [_F, _F, _F, _I, _F, _F, _I, _I, _P],
+        "cs_warp_rows_depth_bf16": [_P] * 7 + [_I] * 5 + [_F, _F, _F, _I, _F, _F, _I, _I, _P],
     },
     "gather": {
         "cs_gather_rows_b32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "polylines_exact": {
-        "cs_polylines_exact_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
-        "cs_polylines_exact_coord": [_P, _F, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+        "cs_polylines_exact_rows": [_P] * 5 + [_I] * 8 + [_P, _P],
+        "cs_polylines_exact_coord": [_P, _F, _P, _P, _P] + [_I] * 8 + [_P, _P],
     },
     "polylines": {
-        "cs_polylines_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-        "cs_polylines_coord": [_P, _F, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "cs_polylines_rows": [_P] * 5 + [_I] * 8 + [_P],
+        "cs_polylines_coord": [_P, _F, _P, _P, _P] + [_I] * 8 + [_P],
     },
     "flash_attention": {
         "cs_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],

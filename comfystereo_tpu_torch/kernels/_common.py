@@ -1,10 +1,20 @@
-"""Argument checks shared by the kernel wrappers."""
+"""Argument checks and launch helpers shared by the kernel wrappers."""
 from __future__ import annotations
 
 from typing import Sequence
 
 import numpy as np
 import torch
+
+# Shared memory one CTA may opt in to on sm_90 (227 KB), static and dynamic
+# together.
+SMEM_LIMIT = 232448
+
+
+def resident_ctas(device: torch.device, per_sm: int) -> int:
+    """per_sm CTAs on each of the card's multiprocessors: the grid of a
+    kernel whose CTAs walk rows at a stride of the grid."""
+    return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_rows(name: str, tensors: Sequence[torch.Tensor], dtype: torch.dtype) -> None:

@@ -21,8 +21,11 @@ its plain version for CPU tensors:
   every device (`device.true_divide`), as the kernel's are.
 
 Both are bit-equal to their plain versions. The words and scans take 24
-bytes of shared memory per 32 columns (`smem_bytes`), so rows up to
-`MAX_WIDTH` columns.
+bytes per 32 columns (`smem_bytes`): rows up to `SHARED_WIDTH` columns keep
+them in shared memory, one row per CTA; wider rows, up to `MAX_WIDTH`
+columns (float32 counts every column below 2^24), keep them in a
+device-memory workspace of one row per CTA, and each CTA walks rows at a
+stride of the grid. A wider row raises on the card before any launch.
 """
 from __future__ import annotations
 
@@ -31,32 +34,39 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ._common import check_rows, launch, pow_mode
+from ._common import SMEM_LIMIT, check_rows, launch, pow_mode, resident_ctas
 from ..device import true_divide
 
 _LARGE = 1e9
-# Shared memory one CTA may opt in to on sm_90 (227 KB).
-SMEM_LIMIT = 232448
 
 LAUNCHES = 0  # kernel launches since the last reset (plain-version calls don't count)
 
 
+def row_words(w: int) -> int:
+    """4-byte words of one row's words and scans: per 32 columns and for
+    each of the two masks, a word of mask bits, the last set column up to
+    it and the first from it on."""
+    return 6 * ((w + 31) // 32)
+
+
 def smem_bytes(w: int) -> int:
-    """Shared memory of one CTA for a row of w columns: per 32 columns and
-    for each of the two masks, a word of mask bits, the last set column up
-    to it and the first from it on."""
-    return 24 * ((w + 31) // 32)
+    """Shared memory of one CTA for a row of w columns held there."""
+    return 4 * row_words(w)
 
 
-MAX_WIDTH = SMEM_LIMIT // 24 * 32  # 309,920 columns
+SHARED_WIDTH = SMEM_LIMIT // 24 * 32  # 309,920 columns
+MAX_WIDTH = 1 << 24
+_CTAS_PER_SM = 8  # 256 threads each
 
 
-def check_fits(name: str, w: int) -> None:
-    """Raise unless a row of w columns fits in one CTA's shared memory."""
-    if smem_bytes(w) > SMEM_LIMIT:
-        raise ValueError(f"{name}: a row of {w} columns needs {smem_bytes(w)} bytes of "
-                         f"shared memory, over the {SMEM_LIMIT} one CTA holds (at most "
-                         f"{MAX_WIDTH} columns)")
+def check_launch(name: str, t: torch.Tensor) -> None:
+    """Raise unless the CUDA kernel takes the [N, W] rows t: a CUDA tensor
+    of at most MAX_WIDTH columns."""
+    if t.shape[1] > MAX_WIDTH:
+        raise ValueError(f"{name}: a row of {t.shape[1]} columns is over the {MAX_WIDTH} "
+                         "columns the CUDA kernel takes")
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
 
 
 def edge_distances_plain(mask_left: torch.Tensor, mask_right: torch.Tensor
@@ -112,15 +122,22 @@ def distance_weight(dist: torch.Tensor, mask_radius: int, falloff_exponent: floa
 
 
 def _launch(entry: str, before, n: int, w: int, device, after=()):
-    """Launch a C entry, `entry(*before, out_a, out_b, n, w, *after,
-    stream)`, on the two [n, w] float32 outputs it fills."""
+    """Launch a C entry, `entry(*before, out_a, out_b, workspace, ctas, n, w,
+    *after, stream)`, on the two [n, w] float32 outputs it fills. Rows over
+    SHARED_WIDTH get a grid of resident CTAs and their workspace."""
     global LAUNCHES
     from . import _build
 
     out_a = torch.empty((n, w), dtype=torch.float32, device=device)
     out_b = torch.empty_like(out_a)
+    ctas, workspace = 0, None
+    if w > SHARED_WIDTH:
+        ctas = min(n, resident_ctas(device, _CTAS_PER_SM))
+        workspace = torch.empty(ctas * row_words(w), dtype=torch.int32, device=device)
     fn = getattr(_build.library("distance"), entry)
-    err = launch(fn, *before, out_a.data_ptr(), out_b.data_ptr(), n, w, *after, device=device)
+    err = launch(fn, *before, out_a.data_ptr(), out_b.data_ptr(),
+                 None if workspace is None else workspace.data_ptr(), ctas, n, w, *after,
+                 device=device)
     _build.check(err, f"{entry} kernel launch")
     LAUNCHES += 1
     return out_a, out_b
@@ -133,10 +150,8 @@ def edge_distances(mask_left: torch.Tensor, mask_right: torch.Tensor
     check_rows("edge_distances", (mask_left, mask_right), torch.bool)
     if mask_left.device.type == "cpu":
         return edge_distances_plain(mask_left, mask_right)
+    check_launch("edge_distances", mask_left)
     n, w = mask_left.shape
-    check_fits("edge_distances", w)
-    if mask_left.device.type != "cuda":
-        raise ValueError(f"edge_distances: unsupported device {mask_left.device}")
     return _launch("cs_edge_distances", (mask_left.data_ptr(), mask_right.data_ptr()), n, w,
                    mask_left.device)
 
@@ -165,9 +180,7 @@ def edge_weights_fused(depth255: torch.Tensor, *, edge_threshold: float, mask_ra
               height=height)
     if depth255.device.type == "cpu":
         return edge_weights_plain(depth255, **kw)
-    check_fits("edge_weights_fused", w)
-    if depth255.device.type != "cuda":
-        raise ValueError(f"edge_weights_fused: unsupported device {depth255.device}")
+    check_launch("edge_weights_fused", depth255)
     return _launch("cs_edge_weights", (depth255.data_ptr(),), n, w, depth255.device,
                    (int(height), _edge_threshold10(edge_threshold), float(mask_radius),
                     float(falloff), pow_mode(falloff)))

@@ -18,9 +18,11 @@ channel of a [B, C, H, W] image with one [B, 1, H, W] plane).
 
 `max_disp` is kept so that the signature and the callers match the JAX
 package, where the TPU kernel sizes its source window by it; the CUDA kernel
-reads any column of the row and does not use it. The staged rows must fit
-in one CTA's shared memory (`check_fits`: M = N up to 29,053 columns row for
-row, 14,525 for a three-channel plane): on the card a larger row raises. An
+reads any column of the row and does not use it. Rows whose staged rows
+fit in one CTA's shared memory (`smem_bytes`: M = N up to 29,053 columns
+row for row, 14,525 for a three-channel plane) are staged; wider ones are
+gathered by the kernel's direct instance from device memory, with the same
+bits. An
 index outside [0, M-1] fails on both devices: `torch.gather` raises on the
 CPU, and the kernel stops with a device-side assert on the card (reported at
 the next synchronisation, as `torch.gather`'s own CUDA kernel reports it).
@@ -37,8 +39,7 @@ from . import _common
 LAUNCHES = 0  # kernel launches since the last reset (plain-version calls don't count)
 
 _VALUE_DTYPES = (torch.float32, torch.int32)
-# Shared memory one CTA may opt in to on sm_90 (227 KB).
-SMEM_LIMIT = 232448
+SMEM_LIMIT = _common.SMEM_LIMIT
 
 
 def smem_bytes(m: int, n: int, rep: int) -> int:
@@ -51,13 +52,10 @@ def smem_bytes(m: int, n: int, rep: int) -> int:
     return 4 * (rep * slot(m) + slot(n))
 
 
-def check_fits(m: int, n: int, rep: int) -> None:
-    """Raise unless the kernel's staged rows fit in one CTA's shared memory."""
-    need = smem_bytes(m, n, rep)
-    if need > SMEM_LIMIT:
-        raise ValueError(f"bounded_take_along_w: rows of {m} values and {n} indices "
-                         f"({rep} value rows per index row) need {need} bytes of "
-                         f"shared memory, over the {SMEM_LIMIT} one CTA holds")
+def staged(m: int, n: int, rep: int) -> bool:
+    """True when the kernel stages the rows in shared memory; otherwise its
+    direct instance gathers them from device memory."""
+    return smem_bytes(m, n, rep) <= SMEM_LIMIT
 
 
 def _broadcast_rows(lead_v: Tuple[int, ...], lead_i: Tuple[int, ...]):
@@ -109,7 +107,6 @@ def bounded_take_along_w(values: torch.Tensor, idx: torch.Tensor,
     from . import _build
 
     m, n = values.shape[-1], idx.shape[-1]
-    check_fits(m, n, rows_map[0])
     values = values.contiguous()
     idx = idx.contiguous()
     rows = math.prod(lead_v)

@@ -40,6 +40,14 @@ advance (`hit_indices`), so the kernel keeps each group's winner, its two
 colours read from device memory, across samples and rebuilds it only where
 it changes.
 
+The kernel takes any C (colours in groups of up to 3 channels),
+k_candidates (K) of 1 to 8 (a run-time bound of its candidate loops) and
+rows of up to `MAX_WIDTH` columns: rows whose planes fit in one CTA's
+shared memory (`smem_bytes`; 9,598 columns at S = 8) stage them there, one
+row per CTA; wider rows keep them in a device-memory workspace of one row
+per CTA, and each CTA walks rows at a stride of the grid. A K above 8 or a
+wider row raises on the card before any launch.
+
 Two entries, each launching the kernel for CUDA tensors and running a plain
 version for CPU tensors:
   * `polylines_scanline(x, coord, colors, ...)`, the Pallas kernel's
@@ -62,7 +70,10 @@ import torch.nn.functional as F
 from . import _common
 
 LAUNCHES = 0  # kernel launches since the last reset (plain-version calls don't count)
-KERNEL_K = 4  # the k_candidates the CUDA kernel is built for
+KERNEL_K = range(1, 9)  # the k_candidates the CUDA kernel takes
+_STATIC_SMEM = 2048     # the kernel's own: a block scan's 512 floats
+MAX_WIDTH = 1 << 24     # float32 counts every column below it
+_CTAS_PER_SM = 8        # 256 threads each
 
 _NEG_INF = -1e30
 _POS_INF = 1e30
@@ -245,11 +256,22 @@ def polylines_scanline_plain(x: torch.Tensor, coord: torch.Tensor, colors: torch
     return acc
 
 
-def smem_bytes(w: int, samples: int) -> int:
-    """Dynamic shared memory of a CTA: the row's x and coord, the two
-    endpoint streams on W + 1 slots scanned and as they are, and the sample
+def row_words(w: int, samples: int) -> int:
+    """4-byte words of one row's planes: x and coord, the two endpoint
+    streams on W + 1 slots scanned and as they are, and the sample
     offsets."""
-    return 4 * (2 * w + 4 * (w + 1) + samples)
+    return 2 * w + 4 * (w + 1) + samples
+
+
+def smem_bytes(w: int, samples: int) -> int:
+    """Dynamic shared memory of a CTA that stages its row's planes."""
+    return 4 * row_words(w, samples)
+
+
+def staged(w: int, samples: int) -> bool:
+    """True when a row of w columns and S = samples stages its planes in
+    shared memory; otherwise the kernel keeps them in its workspace."""
+    return smem_bytes(w, samples) + _STATIC_SMEM <= _common.SMEM_LIMIT
 
 
 def _check(name: str, rows, colors: torch.Tensor, samples: int, k_candidates: int,
@@ -265,8 +287,6 @@ def _check(name: str, rows, colors: torch.Tensor, samples: int, k_candidates: in
     if samples < 1 or k_candidates < 1 or max_disp < 0:
         raise ValueError(f"{name}: samples {samples} and k_candidates {k_candidates} must "
                          f"be >= 1, max_disp {max_disp} >= 0")
-    if rows[0].device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {rows[0].device}")
 
 
 def _launch(name: str, entry: str, rows, colors: torch.Tensor, sharp: bool, samples: int,
@@ -274,22 +294,31 @@ def _launch(name: str, entry: str, rows, colors: torch.Tensor, sharp: bool, samp
     """Check the kernel's own limits and launch `entry` (rows: its leading
     arguments, pointers or the float32 separation)."""
     global LAUNCHES
-    c = colors.shape[-1]
-    if not 1 <= c <= 3:
-        raise ValueError(f"{name}: the CUDA kernel takes 1 to 3 channels, got {c}")
-    if k_candidates != KERNEL_K:
-        raise ValueError(f"{name}: the CUDA kernel is built for k_candidates={KERNEL_K}, "
-                         f"got {k_candidates}")
+    if k_candidates not in KERNEL_K:
+        raise ValueError(f"{name}: the CUDA kernel takes k_candidates of {KERNEL_K.start} "
+                         f"to {KERNEL_K.stop - 1}, got {k_candidates}")
+    n, w, c = colors.shape
+    if w > MAX_WIDTH:
+        raise ValueError(f"{name}: a row of {w} columns is over the {MAX_WIDTH} columns the "
+                         "CUDA kernel takes")
     if not colors.is_contiguous():
         raise ValueError(f"{name}: colors must be contiguous")
+    if colors.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {colors.device}")
     from . import _build
 
-    n, w = colors.shape[:2]
     out = torch.empty_like(colors)
+    ctas, workspace = 0, None
+    if not staged(w, samples):
+        ctas = min(n, _common.resident_ctas(colors.device, _CTAS_PER_SM))
+        workspace = torch.empty(ctas * row_words(w, samples), dtype=torch.float32,
+                                device=colors.device)
     err = _common.launch(
         getattr(_build.library("polylines"), entry),
-        *rows, colors.data_ptr(), out.data_ptr(), n, w, c, int(bool(sharp)), int(samples),
-        int(k_candidates), int(max_disp), device=colors.device)
+        *rows, colors.data_ptr(), out.data_ptr(),
+        None if workspace is None else workspace.data_ptr(), ctas, n, w, c,
+        int(bool(sharp)), int(samples), int(k_candidates), int(max_disp),
+        device=colors.device)
     _build.check(err, f"{name} kernel launch")
     LAUNCHES += 1
     return out
@@ -299,9 +328,9 @@ def polylines_scanline(x: torch.Tensor, coord: torch.Tensor, colors: torch.Tenso
                        sharp: bool, samples: int, k_candidates: int,
                        max_disp: int) -> torch.Tensor:
     """Colour sums over S sub-samples of [N, W] rows (the function of the
-    Pallas kernel, not of the XLA twin): the CUDA kernel for CUDA tensors
-    (C of 1 to 3, k_candidates 4), the plain version for CPU tensors. x, coord:
-    [N, W] float32, contiguous; colors: [N, W, C] float32, contiguous."""
+    Pallas kernel, not of the XLA twin): the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors. x, coord: [N, W] float32,
+    contiguous; colors: [N, W, C] float32, contiguous."""
     _check("polylines_scanline", (x, coord), colors, samples, k_candidates, max_disp)
     kw = dict(sharp=bool(sharp), samples=int(samples), k_candidates=int(k_candidates),
               max_disp=int(max_disp))

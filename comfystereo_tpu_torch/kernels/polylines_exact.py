@@ -14,6 +14,14 @@ first listed one to its last instead. Its bytes (28 per pixel through the
 fused entry) bound it, with its operations close behind. See the source's
 header.
 
+The kernel takes any C (colours in groups of up to 3 channels), max_pieces
+(K) of 1 to 16 (its breakpoint slots are a template of 12 or 16, the
+smallest that holds K) and rows of up to `MAX_WIDTH` columns: rows of up to
+`SHARED_WIDTH` columns stage their planes in shared memory, one row per
+CTA; wider rows keep them in a device-memory workspace of one row per CTA,
+and each CTA walks rows at a stride of the grid. A K above 16 or a wider
+row raises on the card before any launch.
+
 Two entries, each launching the kernel for CUDA tensors and running a plain
 version for CPU tensors:
   * `polylines_exact_rows(x, cl, colors, ...)`, the Pallas kernel's
@@ -42,9 +50,12 @@ from . import _common
 LAUNCHES = 0  # kernel launches since the last reset (plain-version calls don't count)
 
 _EPS = 1e-7        # rounded to float32 wherever it meets a float32 tensor
-KERNEL_PIECES = 12  # the max_pieces the CUDA kernel is built for
+KERNEL_PIECES = range(1, 17)  # the max_pieces the CUDA kernel takes
 LIST_CAP = 16       # entries of a column's candidate list in the CUDA kernel
 BLOCK = 32          # columns per warp, and per block of the kernel's m ranges
+_STATIC_SMEM = 64   # the kernel's own: a block reduction's 16 floats
+MAX_WIDTH = 1 << 24  # float32 counts every column below it
+_CTAS_PER_SM = 5     # the kernel's launch bounds
 
 
 def window(x: torch.Tensor, max_disp: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -261,10 +272,26 @@ def polylines_exact_rows_plain(x: torch.Tensor, cl: torch.Tensor,
     return winner_scan(colors, x, cl, centers, sigs, valids, sharp, max_disp)
 
 
+def row_words(w: int) -> int:
+    """4-byte words of one row's staged planes: x, closeness and the m
+    ranges of its 32-column blocks."""
+    return 2 * w + 2 * (-(-w // BLOCK))
+
+
 def smem_bytes(w: int) -> int:
-    """Dynamic shared memory of a CTA: the row's x and closeness, the m
-    ranges of its 32-column blocks, and 256 threads' candidate lists."""
-    return 4 * (2 * w + 2 * (-(-w // BLOCK))) + 4 * LIST_CAP * 256
+    """Dynamic shared memory of a CTA that stages its row: the planes and
+    256 threads' candidate lists."""
+    return 4 * row_words(w) + 4 * LIST_CAP * 256
+
+
+def _shared_width() -> int:
+    w = (_common.SMEM_LIMIT - _STATIC_SMEM) // 8
+    while smem_bytes(w) + _STATIC_SMEM > _common.SMEM_LIMIT:
+        w -= 1
+    return w
+
+
+SHARED_WIDTH = _shared_width()  # 26,181 columns
 
 
 def _check_colors(name: str, colors: torch.Tensor, n: int, w: int, device) -> None:
@@ -281,12 +308,13 @@ def _launch(name: str, entry: str, rows, colors: torch.Tensor, sharp: bool,
     """Check the kernel's own limits and launch `entry` (rows: its leading
     arguments, pointers or the float32 separation)."""
     global LAUNCHES
-    c = colors.shape[-1]
-    if not 1 <= c <= 3:
-        raise ValueError(f"{name}: the CUDA kernel takes 1 to 3 channels, got {c}")
-    if max_pieces != KERNEL_PIECES:
-        raise ValueError(f"{name}: the CUDA kernel is built for max_pieces={KERNEL_PIECES}, "
-                         f"got {max_pieces}")
+    if max_pieces not in KERNEL_PIECES:
+        raise ValueError(f"{name}: the CUDA kernel takes max_pieces of {KERNEL_PIECES.start} "
+                         f"to {KERNEL_PIECES.stop - 1}, got {max_pieces}")
+    n, w, c = colors.shape
+    if w > MAX_WIDTH:
+        raise ValueError(f"{name}: a row of {w} columns is over the {MAX_WIDTH} columns the "
+                         "CUDA kernel takes")
     if not 0 <= list_cap <= LIST_CAP:
         raise ValueError(f"{name}: list_cap {list_cap} not in [0, {LIST_CAP}]")
     if not colors.is_contiguous():
@@ -294,15 +322,22 @@ def _launch(name: str, entry: str, rows, colors: torch.Tensor, sharp: bool,
     if overflow is not None and (overflow.dtype != torch.int32 or overflow.numel() != 1
                                  or overflow.device != colors.device):
         raise ValueError(f"{name}: overflow must be one int32 on {colors.device}")
+    if colors.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {colors.device}")
     from . import _build
 
-    n, w = colors.shape[:2]
     out = torch.empty_like(colors)
+    ctas, workspace = 0, None
+    if w > SHARED_WIDTH:
+        ctas = min(n, _common.resident_ctas(colors.device, _CTAS_PER_SM))
+        workspace = torch.empty(ctas * row_words(w), dtype=torch.float32,
+                                device=colors.device)
     err = _common.launch(
         getattr(_build.library("polylines_exact"), entry),
-        *rows, colors.data_ptr(), out.data_ptr(), n, w, c, int(bool(sharp)), int(max_pieces),
-        int(max_disp), int(list_cap), None if overflow is None else overflow.data_ptr(),
-        device=colors.device)
+        *rows, colors.data_ptr(), out.data_ptr(),
+        None if workspace is None else workspace.data_ptr(), ctas, n, w, c,
+        int(bool(sharp)), int(max_pieces), int(max_disp), int(list_cap),
+        None if overflow is None else overflow.data_ptr(), device=colors.device)
     _build.check(err, f"{name} kernel launch")
     LAUNCHES += 1
     return out
@@ -320,8 +355,8 @@ def polylines_exact_rows(x: torch.Tensor, cl: torch.Tensor, colors: torch.Tensor
                          *, sharp: bool, max_pieces: int, max_disp: int,
                          list_cap: int = LIST_CAP, overflow: torch.Tensor = None
                          ) -> torch.Tensor:
-    """Render [N, W] rows: the CUDA kernel for CUDA tensors (C of 1 to 3,
-    max_pieces 12), the plain version for CPU tensors. x, cl: [N, W]
+    """Render [N, W] rows: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. x, cl: [N, W]
     float32, contiguous; colors: [N, W, C] float32, contiguous. list_cap
     (0 to LIST_CAP) caps the candidate lists; `overflow`, a one-element
     int32 tensor, receives the count of columns that outgrew it."""
@@ -331,8 +366,6 @@ def polylines_exact_rows(x: torch.Tensor, cl: torch.Tensor, colors: torch.Tensor
     if x.device.type == "cpu":
         _count_overflow(overflow, x, sharp, max_disp, list_cap)
         return polylines_exact_rows_plain(x, cl, colors, sharp, max_pieces, max_disp)
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
     return _launch(name, "cs_polylines_exact_rows", (x.data_ptr(), cl.data_ptr()), colors,
                    sharp, max_pieces, max_disp, list_cap, overflow)
 
@@ -360,7 +393,5 @@ def polylines_exact_rows_fused(coord: torch.Tensor, colors: torch.Tensor, sep_px
         _count_overflow(overflow, _common.point_x(coord, sep_px), sharp, max_disp, list_cap)
         return polylines_exact_rows_fused_plain(coord, colors, sep_px, sharp, max_pieces,
                                                 max_disp)
-    if coord.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {coord.device}")
     return _launch(name, "cs_polylines_exact_coord", (coord.data_ptr(), float(sep_px)),
                    colors, sharp, max_pieces, max_disp, list_cap, overflow)

@@ -24,8 +24,12 @@ plain version for CPU tensors:
   plain version `warp_rows_fused_plain`, the composition normalize ->
   offsets -> `warp_rows_plain`.
 
-On the card a row may hold at most `MAX_WIDTH` columns (shared memory,
-`smem_bytes`); a wider row raises before any launch.
+The kernel takes any C (the taps loop over the channels) and rows of up to
+`MAX_WIDTH` columns: rows whose planes fit in one CTA's shared memory
+(`SHARED_WIDTH`, `smem_bytes`) keep them there, one row per CTA; wider rows
+keep them in a device-memory workspace of one row per CTA, and each CTA
+walks rows at a stride of the grid. A row over MAX_WIDTH raises on the card
+before any launch.
 """
 from __future__ import annotations
 
@@ -40,34 +44,45 @@ from ..ops import scan
 LAUNCHES = 0  # kernel launches since the last reset (plain-version calls don't count)
 
 _COLOR_DTYPES = (torch.float32, torch.bfloat16)
-# Shared memory one CTA may opt in to on sm_90 (227 KB), and the kernel's own.
-SMEM_LIMIT = 232448
-_STATIC_SMEM = 64
+SMEM_LIMIT = _common.SMEM_LIMIT
+_STATIC_SMEM = 64  # the kernel's own
+MAX_WIDTH = 65536  # the kernel's intervals pack a column into 16 bits
+_CTAS_PER_SM = 5   # the kernel's launch bounds
+
+
+def plane_words(w: int) -> int:
+    """4-byte words of one row's planes: five planes (dl, nd, interval, src,
+    z) and one bit per column."""
+    return 5 * w + (w + 31) // 32
 
 
 def smem_bytes(w: int) -> int:
-    """Shared memory of one CTA for a row of w columns: five 4-byte planes
-    (dl, nd, interval, src, z), one bit per column, and 64 static bytes (the
-    row's offset range, per warp)."""
-    return 20 * w + 4 * ((w + 31) // 32) + _STATIC_SMEM
+    """Shared memory of one CTA for a row of w columns held in shared
+    memory: its planes and 64 static bytes (the row's offset range, per
+    warp)."""
+    return 4 * plane_words(w) + _STATIC_SMEM
 
 
-def _max_width() -> int:
+def _shared_width() -> int:
     w = SMEM_LIMIT // 20
     while smem_bytes(w) > SMEM_LIMIT:
         w -= 1
     return w
 
 
-MAX_WIDTH = _max_width()  # 11,547 columns
+SHARED_WIDTH = _shared_width()  # 11,547 columns
 
 
-def check_fits(w: int) -> None:
-    """Raise unless a row of w columns fits in one CTA's shared memory."""
-    if smem_bytes(w) > SMEM_LIMIT:
-        raise ValueError(f"warp_rows: a row of {w} columns needs {smem_bytes(w)} bytes of "
-                         f"shared memory, over the {SMEM_LIMIT} one CTA holds (at most "
-                         f"{MAX_WIDTH} columns)")
+def check_launch(name: str, image: torch.Tensor, w: int) -> None:
+    """Raise unless the CUDA kernel takes the colour rows `image` of w
+    columns: a CUDA tensor, contiguous, rows of at most MAX_WIDTH columns."""
+    if w > MAX_WIDTH:
+        raise ValueError(f"{name}: a row of {w} columns is over the {MAX_WIDTH} columns the "
+                         "CUDA kernel takes")
+    if image.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {image.device}")
+    if not image.is_contiguous():
+        raise ValueError(f"{name}: image must be contiguous")
 
 
 def _window(offset: torch.Tensor, max_disp: int):
@@ -198,29 +213,24 @@ def _check_image(name: str, image: torch.Tensor, n: int, w: int, device) -> None
         raise ValueError(f"{name}: image and rows on different devices")
 
 
-def _check_launch(name: str, image: torch.Tensor, w: int) -> None:
-    check_fits(w)
-    if image.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {image.device}")
-    c = image.shape[-1]
-    if c not in (1, 3):
-        raise ValueError(f"{name}: the CUDA kernel takes 1 or 3 channels, got {c}")
-    if not image.is_contiguous():
-        raise ValueError(f"{name}: image must be contiguous")
-
-
 def _launch(entry: str, before, image: torch.Tensor, after):
-    """Launch a C entry, `entry(*before, image, out, gap, n, w, c, *after,
-    stream)`, on the outputs it fills: (warped, gap)."""
+    """Launch a C entry, `entry(*before, image, out, gap, workspace, ctas, n,
+    w, c, *after, stream)`, on the outputs it fills: (warped, gap). Rows
+    over SHARED_WIDTH get a grid of resident CTAs and their workspace."""
     global LAUNCHES
     from . import _build
 
     n, w, c = image.shape
     out = torch.empty_like(image)
     gap = torch.empty((n, w), dtype=torch.bool, device=image.device)
+    ctas, workspace = 0, None
+    if w > SHARED_WIDTH:
+        ctas = min(n, _common.resident_ctas(image.device, _CTAS_PER_SM))
+        workspace = torch.empty(ctas * plane_words(w), dtype=torch.int32, device=image.device)
     suffix = "f32" if image.dtype == torch.float32 else "bf16"
     fn = getattr(_build.library("warp_kernel"), f"{entry}_{suffix}")
     err = _common.launch(fn, *before, image.data_ptr(), out.data_ptr(), gap.data_ptr(),
+                         None if workspace is None else workspace.data_ptr(), ctas,
                          n, w, c, *after, device=image.device)
     _build.check(err, f"{entry} kernel launch")
     LAUNCHES += 1
@@ -230,16 +240,16 @@ def _launch(entry: str, before, image: torch.Tensor, after):
 def warp_rows(offset: torch.Tensor, nd: torch.Tensor, image: torch.Tensor, *,
               gradient_threshold: float, max_stretch: int, max_disp: int
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Warp [N, W] rows: the CUDA kernel for CUDA tensors (C of 1 or 3), the
-    plain version for CPU tensors. offset, nd: [N, W] float32, contiguous;
-    image: [N, W, C] float32 or bfloat16, contiguous."""
+    """Warp [N, W] rows: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors. offset, nd: [N, W] float32, contiguous; image:
+    [N, W, C] float32 or bfloat16, contiguous."""
     _common.check_rows("warp_rows", (offset, nd), torch.float32)
     n, w = offset.shape
     _check_image("warp_rows", image, n, w, offset.device)
     if offset.device.type == "cpu":
         return warp_rows_plain(offset, nd, image, gradient_threshold,
                                max_stretch, max_disp)
-    _check_launch("warp_rows", image, w)
+    check_launch("warp_rows", image, w)
     return _launch("cs_warp_rows", (offset.data_ptr(), nd.data_ptr()), image,
                    (float(gradient_threshold), int(max_stretch), int(max_disp)))
 
@@ -267,8 +277,9 @@ def warp_rows_fused(depth: torch.Tensor, dmin: torch.Tensor, dmax: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Warp the rows of an eye from its depth: depth [N, W] float32 rows of
     N / height images, dmin and dmax [N / height] float32 (each image's min
-    and max), image [N, W, C]. The CUDA kernel forms the normalised depth and
-    the offsets itself; CPU tensors take `warp_rows_fused_plain`."""
+    and max), image [N, W, C]. On the card the CUDA kernel forms the
+    normalised depth and the offsets itself; CPU tensors run
+    `warp_rows_fused_plain`."""
     _common.check_rows("warp_rows_fused", (depth,), torch.float32)
     n, w = depth.shape
     if height <= 0 or n % height:
@@ -284,7 +295,7 @@ def warp_rows_fused(depth: torch.Tensor, dmin: torch.Tensor, dmax: torch.Tensor,
               max_stretch=max_stretch, max_disp=max_disp, height=height)
     if depth.device.type == "cpu":
         return warp_rows_fused_plain(depth, dmin, dmax, image, **kw)
-    _check_launch("warp_rows_fused", image, w)
+    check_launch("warp_rows_fused", image, w)
     return _launch("cs_warp_rows_depth", (depth.data_ptr(), dmin.data_ptr(), dmax.data_ptr()),
                    image, (int(height), float(divergence_px), float(separation_px),
                            float(exponent), _common.pow_mode(exponent),

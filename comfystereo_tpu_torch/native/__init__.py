@@ -3,7 +3,8 @@
 The port's video loop converts its chunks on the GPU (`utils/video.py:
 device_chunk`). These conversions serve host-side callers that hold numpy
 frames (pixel marshalling around cv2 decode and encode, reference
-GenerateStereo.py:131-171): `hostops.cpp`, the package's own copy of the
+GenerateStereo.py:131-171), among them `utils/video.py:iter_frame_chunks`
+outside its raw mode: `hostops.cpp`, the package's own copy of the
 source, partitions the pixels over std::thread workers.
 
 Build model: `g++ -O3 -shared` at first use into `build/hostops/` at the

@@ -1,2 +1,2 @@
 """Stereo compute ops on torch tensors (plain PyTorch; kernels under kernels/)."""
-from . import blur, depth, fills, pack, scan, warp  # noqa: F401
+from . import blur, depth, fills, pack, polylines, scan, warp  # noqa: F401

@@ -11,11 +11,14 @@ from __future__ import annotations
 import torch
 
 
-def normalize_depth(depth: torch.Tensor) -> torch.Tensor:
+def normalize_depth(depth: torch.Tensor, batch_axes: int = 1) -> torch.Tensor:
     """Per-image min/max normalization of a depth map [..., H, W] to [0, 1].
 
-    A flat depth map maps to all-zeros (reference :1591-1594).
+    A flat depth map maps to all-zeros (reference :1591-1594). batch_axes is
+    accepted and ignored, as in the JAX package: the min and max are always
+    over the trailing (H, W) axes.
     """
+    del batch_axes
     d = depth.float()
     return normalize_between(d, d.amin(dim=(-2, -1), keepdim=True),
                              d.amax(dim=(-2, -1), keepdim=True))
@@ -55,3 +58,19 @@ def pixel_offsets(depth: torch.Tensor, divergence_px: float,
 def percent_to_px(divergence: float, separation: float, width: int):
     """Percent-of-width -> pixels (reference :1602-1603, :1063-1065)."""
     return (divergence / 100.0) * width, (separation / 100.0) * width
+
+
+def rgb_to_gray_depth(depth_rgb: torch.Tensor) -> torch.Tensor:
+    """[..., H, W, C] -> [..., H, W] with the node's Rec.601 weights
+    (GenerateStereo.py:135) in the input's dtype: the weighted sum of a
+    3-channel input, the channel of a 1-channel one, and any other input
+    unchanged. The sum is r*0.2989 + g*0.5870 + b*0.1140 in that order; the
+    JAX package's XLA contracts it into FMAs, so the two differ by at most
+    an ulp."""
+    if depth_rgb.dim() >= 3 and depth_rgb.shape[-1] == 3:
+        w = torch.tensor([0.2989, 0.5870, 0.1140], dtype=depth_rgb.dtype,
+                         device=depth_rgb.device)
+        return depth_rgb[..., 0] * w[0] + depth_rgb[..., 1] * w[1] + depth_rgb[..., 2] * w[2]
+    if depth_rgb.dim() >= 3 and depth_rgb.shape[-1] == 1:
+        return depth_rgb[..., 0]
+    return depth_rgb

@@ -27,7 +27,8 @@ Two functions compute this, as in the JAX package (`ops/polylines.py`):
 
 `apply_polylines(impl="auto")` takes the kernel route for CUDA tensors and
 the twin for CPU tensors, as JAX takes its kernel on its accelerator and the
-twin elsewhere.
+twin elsewhere. The kernel takes any C and k_candidates 1 to 8; a larger
+k_candidates raises on the card.
 """
 from __future__ import annotations
 
@@ -199,7 +200,8 @@ def apply_polylines(image: torch.Tensor, norm_depth: torch.Tensor, divergence_px
     coord = depth_ops.signed_power(norm_depth, stereo_offset_exponent) * divergence_px
     max_off = abs(divergence_px) + abs(separation_px)
     max_disp = int(math.ceil(max_off)) + 4
-    use_kernel = impl == "kernel" or (impl == "auto" and coord.device.type == "cuda")
-    route = _polylines_kernel if use_kernel else _polylines_impl
-    return route(image.float(), coord.float(), float(separation_px), bool(sharp),
-                 int(samples), int(k_candidates), max_disp)
+    args = (image.float(), coord.float(), float(separation_px), bool(sharp), int(samples),
+            int(k_candidates), max_disp)
+    if impl == "kernel" or (impl == "auto" and coord.device.type == "cuda"):
+        return _polylines_kernel(*args)
+    return _polylines_impl(*args)

@@ -1,1 +1,3 @@
-"""Host-side utilities: numpy fixtures and the video loop."""
+"""Host-side utilities: the model and embedding caches, numpy fixtures,
+profiling and the video loop."""
+from . import caching, fixtures, profiling  # noqa: F401

@@ -7,8 +7,11 @@ and its depth video through it in `batch_size` chunks with three threads:
 a producer decodes, the main thread enqueues device work, and a consumer
 copies results back and feeds the encoder. Both queues hold at most 2 chunks.
 
-Frames travel as uint8 both ways. cv2 is optional: without it
-`convert_video` raises, and `device_chunk` still runs on in-memory frames.
+Frames travel as uint8 both ways (`iter_frame_chunks(raw=True)`). By
+default `iter_frame_chunks` yields float32 RGB in 0-1, or with `gray=True`
+the Rec.601 luma, converted on the host by `native`, as the JAX package's
+does. cv2 is optional: without it `convert_video` and `iter_frame_chunks`
+raise, and `device_chunk` still runs on in-memory frames.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..config import StereoConfig
 from ..device import DeviceLike, resolve_device, true_divide
 from ..pipeline import stereo_pipeline
@@ -37,15 +41,22 @@ def _require_cv2() -> None:
         raise RuntimeError("cv2 unavailable; video streaming disabled")
 
 
-def iter_frame_chunks(video_path: str, chunk: int
-                      ) -> Iterator[Tuple[np.ndarray, float]]:
-    """Yield ([n, H, W, 3] BGR uint8 frames as decoded, fps) in chunks."""
+def iter_frame_chunks(video_path: str, chunk: int, gray: bool = False,
+                      raw: bool = False) -> Iterator[Tuple[np.ndarray, float]]:
+    """Yield ([n, H, W, 3] float32 RGB in 0-1, fps) in chunks of `chunk`
+    frames; `gray=True` yields [n, H, W] Rec.601 luma in 0-1 instead (the
+    node's depth-gray weights, reference GenerateStereo.py:135), and
+    `raw=True` the decoder's [n, H, W, 3] BGR uint8 frames untouched."""
     _require_cv2()
     cap = cv2.VideoCapture(video_path)
     if not cap.isOpened():  # cv2 treats a bad path as a 0-frame stream
         cap.release()
         raise RuntimeError(f"cannot open video: {video_path}")
     fps = cap.get(cv2.CAP_PROP_FPS) or 30.0
+    if raw:
+        convert = np.asarray
+    else:
+        convert = native.bgr_u8_to_gray_f32 if gray else native.bgr_u8_to_rgb_f32
     frames = []
     try:
         while True:
@@ -54,10 +65,10 @@ def iter_frame_chunks(video_path: str, chunk: int
                 break
             frames.append(frame)
             if len(frames) == chunk:
-                yield np.stack(frames), fps
+                yield convert(np.stack(frames)), fps
                 frames = []
         if frames:
-            yield np.stack(frames), fps
+            yield convert(np.stack(frames)), fps
     finally:
         cap.release()
 
@@ -105,8 +116,8 @@ def convert_video(video_path: str, depth_video_path: str, out_path: str,
 
     def _produce():
         try:
-            img_iter = iter_frame_chunks(video_path, cfg.batch_size)
-            dm_iter = iter_frame_chunks(depth_video_path, cfg.batch_size)
+            img_iter = iter_frame_chunks(video_path, cfg.batch_size, raw=True)
+            dm_iter = iter_frame_chunks(depth_video_path, cfg.batch_size, raw=True)
             for (imgs, _), (deps, _) in zip(img_iter, dm_iter):
                 chunk_q.put((imgs, deps))
         except Exception as exc:  # surfaced after join, not swallowed

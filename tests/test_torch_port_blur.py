@@ -218,19 +218,21 @@ def test_directional_blur_noise_depth_matches():
 
 
 def test_distance_shared_memory_rule():
-    """24 B per 32 columns; the widest row that fits, and a clear error past
-    it before any launch, through either entry (meta tensors stand for the
-    card's)."""
+    """24 B per 32 columns; the widest row whose words fit in shared memory
+    (wider ones take the workspace instances), and past 2^24 columns a clear
+    error before any launch, through either entry (meta tensors stand for
+    the card's)."""
     assert tdist.smem_bytes(1920) == 24 * 60
-    assert tdist.MAX_WIDTH == 309920
-    assert tdist.smem_bytes(tdist.MAX_WIDTH) <= tdist.SMEM_LIMIT
-    assert tdist.smem_bytes(tdist.MAX_WIDTH + 1) > tdist.SMEM_LIMIT
+    assert tdist.SHARED_WIDTH == 309920
+    assert tdist.smem_bytes(tdist.SHARED_WIDTH) <= tdist.SMEM_LIMIT
+    assert tdist.smem_bytes(tdist.SHARED_WIDTH + 1) > tdist.SMEM_LIMIT
+    assert tdist.MAX_WIDTH == 1 << 24
     w = tdist.MAX_WIDTH + 1
     m = torch.empty((1, w), dtype=torch.bool, device="meta")
     before = tdist.LAUNCHES
-    with pytest.raises(ValueError, match="309920 columns"):
+    with pytest.raises(ValueError, match="16777216 columns"):
         tdist.edge_distances(m, m)
-    with pytest.raises(ValueError, match="309920 columns"):
+    with pytest.raises(ValueError, match="16777216 columns"):
         tdist.edge_weights_fused(torch.empty((1, w), device="meta"), edge_threshold=20.0,
                                  mask_radius=20, falloff=2.0, height=1)
     assert tdist.LAUNCHES == before

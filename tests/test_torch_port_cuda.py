@@ -56,11 +56,20 @@ def test_warp_kernel_matches_plain(dev, div_px, sep_px, channels, dtype):
     assert float((out_k.float() - out_p.float()).abs().max()) <= 1e-5
 
 
-def test_warp_kernel_rejects_other_channel_counts(dev):
-    off = torch.zeros(4, W, device=dev)
-    with pytest.raises(ValueError):
-        warp_kernel.warp_rows(off, off, torch.zeros(4, W, 2, device=dev),
-                              gradient_threshold=1.5, max_stretch=8, max_disp=6)
+@pytest.mark.parametrize("channels", [2, 4, 5])
+def test_warp_kernel_takes_other_channel_counts(dev, channels):
+    """C of 2, 4 and 5 run in the kernel (its taps loop over the channels),
+    one launch each, as the plain version computes them."""
+    depth = fixtures.create_depth_map(H, W).astype(np.float32)
+    off, nd, _, kw = _rows(dev, depth, 3.0, 0.0)
+    image = torch.rand(H, W, channels, device=dev)
+    before = warp_kernel.LAUNCHES
+    out_k, gap_k = warp_kernel.warp_rows(off, nd, image, **kw)
+    torch.cuda.synchronize()
+    assert warp_kernel.LAUNCHES == before + 1
+    out_p, gap_p = warp_kernel.warp_rows_plain(off, nd, image, **kw)
+    assert torch.equal(gap_k, gap_p)
+    assert float((out_k - out_p).abs().max()) <= 1e-5
 
 
 @pytest.mark.parametrize("p", [0.0, 0.02, 0.5])
@@ -157,7 +166,32 @@ def test_warp_rows_entry_other_widths(dev, w, div_px):
     _check_warp(out_k, gap_k, out_p, gap_p, kinds, 9)
 
 
-def test_warp_entries_reject_rows_over_shared_memory(dev):
+@pytest.mark.parametrize("w", [warp_kernel.SHARED_WIDTH, warp_kernel.SHARED_WIDTH + 1,
+                               16384, warp_kernel.MAX_WIDTH])
+def test_warp_entries_take_rows_over_shared_memory(dev, w):
+    """The widest row whose planes fit in shared memory, the next (the
+    workspace instances) and 65,536 columns, through both entries, one
+    launch each; a wider row raises before any launch."""
+    depth = torch.rand(2, w, device=dev) * 255.0
+    image = torch.rand(2, w, 3, device=dev)
+    dmin, dmax = torch.aminmax(depth.reshape(1, -1), dim=-1)
+    kw = dict(divergence_px=20.0, separation_px=0.0, exponent=2.0, convergence_point=0.5,
+              gradient_threshold=1.5, max_stretch=8, max_disp=9, height=2)
+    before = warp_kernel.LAUNCHES
+    out_k, gap_k = warp_kernel.warp_rows_fused(depth, dmin, dmax, image, **kw)
+    nd = depth_ops.normalize_between(depth, dmin, dmax).contiguous()
+    off = depth_ops.pixel_offsets(nd, 20.0, 0.0, 2.0, 0.5, prenormalized=True).contiguous()
+    rkw = dict(gradient_threshold=1.5, max_stretch=8, max_disp=9)
+    out_r, gap_r = warp_kernel.warp_rows(off, nd, image, **rkw)
+    torch.cuda.synchronize()
+    assert warp_kernel.LAUNCHES == before + 2
+    out_p, gap_p = warp_kernel.warp_rows_fused_plain(depth, dmin, dmax, image, **kw)
+    _check_warp(out_k, gap_k, out_p, gap_p, ("noise",), 2)
+    out_p, gap_p = warp_kernel.warp_rows_plain(off, nd, image, **rkw)
+    _check_warp(out_r, gap_r, out_p, gap_p, ("noise",), 2)
+
+
+def test_warp_entries_reject_rows_over_their_range(dev):
     w = warp_kernel.MAX_WIDTH + 1
     depth = torch.zeros(2, w, device=dev)
     image = torch.zeros(2, w, 3, device=dev)
@@ -172,16 +206,6 @@ def test_warp_entries_reject_rows_over_shared_memory(dev):
                                     gradient_threshold=1.5, max_stretch=8, max_disp=6,
                                     height=2)
     assert warp_kernel.LAUNCHES == before
-    # the widest row that fits runs
-    w = warp_kernel.MAX_WIDTH
-    depth = torch.rand(2, w, device=dev) * 255.0
-    image = torch.rand(2, w, 3, device=dev)
-    dmin, dmax = torch.aminmax(depth.reshape(1, -1), dim=-1)
-    kw = dict(divergence_px=20.0, separation_px=0.0, exponent=2.0, convergence_point=0.5,
-              gradient_threshold=1.5, max_stretch=8, max_disp=9, height=2)
-    out_k, gap_k = warp_kernel.warp_rows_fused(depth, dmin, dmax, image, **kw)
-    out_p, gap_p = warp_kernel.warp_rows_fused_plain(depth, dmin, dmax, image, **kw)
-    _check_warp(out_k, gap_k, out_p, gap_p, ("noise",), 2)
 
 
 @pytest.mark.parametrize("falloff", [2.0, 1.7])
@@ -223,23 +247,23 @@ def test_distance_kernel_words(dev, w):
     assert torch.equal(kl, pl) and torch.equal(kr, pr)
 
 
-def test_distance_entries_reject_rows_over_shared_memory(dev):
-    w = distance.MAX_WIDTH + 32
-    m = torch.zeros(1, w, dtype=torch.bool, device=dev)
-    before = distance.LAUNCHES
-    with pytest.raises(ValueError, match=str(distance.MAX_WIDTH)):
-        distance.edge_distances(m, m)
-    with pytest.raises(ValueError, match=str(distance.MAX_WIDTH)):
-        distance.edge_weights_fused(torch.zeros(1, w, device=dev), edge_threshold=20.0,
-                                    mask_radius=20, falloff=2.0, height=1)
-    assert distance.LAUNCHES == before
-    # the widest row that fits runs
-    w = distance.MAX_WIDTH
+@pytest.mark.parametrize("w", [distance.SHARED_WIDTH, distance.SHARED_WIDTH + 32])
+def test_distance_entries_take_rows_over_shared_memory(dev, w):
+    """The widest row whose words fit in shared memory and a wider one (the
+    workspace instances), through both entries, bit-equal, one launch each."""
     depth = torch.rand(3, w, device=dev) * 255.0
     kw = dict(edge_threshold=20.0, mask_radius=20, falloff=2.0, height=3)
+    ml, mr = distance.edge_masks(depth[None], 20.0)
+    ml, mr = ml[0].contiguous(), mr[0].contiguous()
+    before = distance.LAUNCHES
     kl, kr = distance.edge_weights_fused(depth, **kw)
+    dl, dr = distance.edge_distances(ml, mr)
+    torch.cuda.synchronize()
+    assert distance.LAUNCHES == before + 2
     pl, pr = distance.edge_weights_plain(depth, **kw)
     assert torch.equal(kl, pl) and torch.equal(kr, pr)
+    pl, pr = distance.edge_distances_plain(ml, mr)
+    assert torch.equal(dl, pl) and torch.equal(dr, pr)
 
 
 def test_blur_and_outputs_card_bit_equal_to_cpu(dev):
@@ -332,13 +356,24 @@ def test_gather_kernel_binary_search_pattern(dev):
     assert torch.equal(got, torch.gather(keys, -1, mid.long()))
 
 
-def test_gather_kernel_rejects_rows_over_shared_memory(dev):
-    values = torch.zeros(2, 30000, device=dev)
-    idx = torch.zeros(2, 30000, dtype=torch.int32, device=dev)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_gather_kernel_takes_rows_over_shared_memory(dev, dtype):
+    """Rows too wide to stage (30,000 columns row for row; a 16,384-column
+    three-channel plane) go to the direct instance: torch.gather's bits, one
+    launch each."""
+    rng = np.random.default_rng(5)
+    values = torch.from_numpy(rng.integers(-2**20, 2**20, (2, 30000))).to(dev, dtype)
+    idx = torch.from_numpy(rng.integers(0, 30000, (2, 30000)).astype(np.int32)).to(dev)
+    planes = torch.from_numpy(rng.random((1, 3, 4, 16384))).to(dev, dtype)
+    pidx = torch.from_numpy(rng.integers(0, 16384, (1, 1, 4, 16384)).astype(np.int32)).to(dev)
+    assert not gather.staged(30000, 30000, 1) and not gather.staged(16384, 16384, 3)
     before = gather.LAUNCHES
-    with pytest.raises(ValueError, match=str(gather.SMEM_LIMIT)):
-        gather.bounded_take_along_w(values, idx, 8)
-    assert gather.LAUNCHES == before
+    got = gather.bounded_take_along_w(values, idx, 8)
+    got_p = gather.bounded_take_along_w(planes, pidx, 8)
+    torch.cuda.synchronize()
+    assert gather.LAUNCHES == before + 2
+    assert torch.equal(got, gather.bounded_take_along_w_plain(values, idx))
+    assert torch.equal(got_p, gather.bounded_take_along_w_plain(planes, pidx))
 
 
 def _poly_rows(dev, depth, div_px, sep_px, channels):
@@ -477,13 +512,15 @@ def test_supersampled_polylines_kernel_other_sample_counts(dev, samples):
 
 
 def test_supersampled_polylines_kernel_rejects_unsupported(dev):
+    """k_candidates 0 and 9 raise before any launch (C = 4 and K = 3 are in
+    the kernel's range)."""
     x, coord, colors, max_disp = _poly_rows(dev, _depth("fixture"), 3.0, 0.0, 3)
-    with pytest.raises(ValueError):
-        polylines.polylines_scanline(x, coord, colors, sharp=True, samples=8, k_candidates=3,
-                                     max_disp=max_disp)
-    with pytest.raises(ValueError):
-        polylines.polylines_scanline(x, coord, torch.zeros(H, W, 4, device=dev), sharp=True,
-                                     samples=8, k_candidates=4, max_disp=max_disp)
+    before = polylines.LAUNCHES
+    for k in (0, 9):
+        with pytest.raises(ValueError):
+            polylines.polylines_scanline(x, coord, colors, sharp=True, samples=8,
+                                         k_candidates=k, max_disp=max_disp)
+    assert polylines.LAUNCHES == before
 
 
 @pytest.mark.parametrize("sharp", [True, False])
@@ -810,3 +847,159 @@ def test_kernels_on_a_card_other_than_the_current(dev):
         sharded = stereo_pipeline(s_img, s_dep, cfg)
         for g, w in zip(sharded["stereo"], want["stereo"]):
             assert torch.equal(g.gather(), w), fill
+
+
+# --- the K ranges, any C and wide rows in the kernels ---------------------
+
+def _k_rows(dev, kind, h=H, w=W):
+    """Row arguments of both polylines kernels at divergence 4.5% of the
+    width on fixture or uniform-noise depth (noise puts many breakpoints in
+    a column, so the piece and candidate counts matter)."""
+    if kind == "fixture":
+        depth = fixtures.create_depth_map(h, w).astype(np.float32)
+    else:
+        depth = np.random.default_rng(1).uniform(0, 255, (h, w)).astype(np.float32)
+    img = fixtures.create_test_image(h, w).astype(np.float32)
+    nd = depth_ops.normalize_depth(torch.from_numpy(depth).to(dev)[None]) - 0.5
+    coord = (depth_ops.signed_power(nd, 2.0)[0] * (0.045 * w)).contiguous()
+    colors = torch.from_numpy(img).to(dev).contiguous()
+    return coord, colors, int(np.ceil(0.045 * w)) + 4
+
+
+@pytest.mark.parametrize("sharp", [True, False])
+@pytest.mark.parametrize("kind", ["fixture", "noise"])
+@pytest.mark.parametrize("k", list(range(1, 17)))
+def test_exact_kernel_every_max_pieces(dev, k, kind, sharp):
+    """max_pieces 1 to 16 in the kernel (slot templates 12 and 16), through
+    both entries, bit-equal to the plain version, one launch each."""
+    coord, colors, max_disp = _k_rows(dev, kind)
+    x = (torch.arange(W, dtype=torch.float32, device=dev) + 0.5 + coord).contiguous()
+    before = polylines_exact.LAUNCHES
+    got = polylines_exact.polylines_exact_rows_fused(coord, colors, 0.0, sharp=sharp,
+                                                     max_pieces=k, max_disp=max_disp)
+    got_x = polylines_exact.polylines_exact_rows(x, coord.abs(), colors, sharp=sharp,
+                                                 max_pieces=k, max_disp=max_disp)
+    torch.cuda.synchronize()
+    assert polylines_exact.LAUNCHES == before + 2
+    want = polylines_exact.polylines_exact_rows_plain(x, coord.abs(), colors, sharp, k,
+                                                      max_disp)
+    assert torch.equal(got, want) and torch.equal(got_x, want)
+
+
+def test_exact_max_pieces_changes_the_output(dev):
+    """On noise rows the piece cap matters: K = 1, 4 and 16 give three
+    different images, so the tests above hold K itself."""
+    coord, colors, max_disp = _k_rows(dev, "noise")
+    outs = [polylines_exact.polylines_exact_rows_fused(coord, colors, 0.0, sharp=True,
+                                                       max_pieces=k, max_disp=max_disp)
+            for k in (1, 4, 16)]
+    assert not torch.equal(outs[0], outs[1]) and not torch.equal(outs[1], outs[2])
+
+
+@pytest.mark.parametrize("sharp", [True, False])
+@pytest.mark.parametrize("kind", ["fixture", "noise"])
+@pytest.mark.parametrize("k", list(range(1, 9)))
+def test_supersampled_kernel_every_k_candidates(dev, k, kind, sharp):
+    """k_candidates 1 to 8 in the kernel (a run-time bound of its loops),
+    both entries bit-equal to the plain version."""
+    coord, colors, max_disp = _k_rows(dev, kind)
+    x = (torch.arange(W, dtype=torch.float32, device=dev) + 0.5 + coord).contiguous()
+    kw = dict(sharp=sharp, samples=8, k_candidates=k, max_disp=max_disp)
+    before = polylines.LAUNCHES
+    got = polylines.polylines_scanline(x, coord, colors, **kw)
+    fused = polylines.polylines_scanline_fused(coord, colors, 0.0, **kw)
+    torch.cuda.synchronize()
+    assert polylines.LAUNCHES == before + 2
+    want = polylines.polylines_scanline_plain(x, coord, colors, **kw)
+    assert torch.equal(got, want)
+    assert torch.equal(fused, torch.trunc(torch.clamp(want / 8 + 0.5, 0.0, 255.0)))
+
+
+@pytest.mark.parametrize("channels", [4, 5, 7])
+def test_other_channel_counts_run_in_the_kernels(dev, channels):
+    """C over 3 through the warp and both polylines routes: one launch per
+    eye's call, and the plain version's bits (the warp's gap masks, its
+    colours within 1e-5)."""
+    img, depths = fixtures.batch_fixture(2, H, W)
+    img = np.concatenate([img, np.tile(img, 2)[..., :channels - 3]], -1).astype(np.float32)
+    image = torch.from_numpy(img).to(dev)
+    depth = torch.from_numpy(depths).to(dev)
+    u8 = torch.trunc(image * 255.0)
+    nd = depth_ops.normalize_depth(depth) - 0.5
+    from comfystereo_tpu_torch.ops import polylines_exact as exact_ops
+    from comfystereo_tpu_torch.ops import warp as warp_ops
+    before = (warp_kernel.LAUNCHES, polylines_exact.LAUNCHES, polylines.LAUNCHES)
+    a, gap_a = warp_ops.forward_warp(image, depth, 4.0, 0.5, 2.0)
+    e = exact_ops.apply_polylines_exact(u8, nd, 4.0, 0.5, 2.0)
+    s = polylines_ops.apply_polylines(u8, nd, 4.0, 0.5, 2.0)
+    torch.cuda.synchronize()
+    assert (warp_kernel.LAUNCHES, polylines_exact.LAUNCHES, polylines.LAUNCHES) == tuple(
+        b + 1 for b in before)
+    b, gap_b = warp_ops.forward_warp(image, depth, 4.0, 0.5, 2.0, impl="twin")
+    assert torch.equal(gap_a, gap_b) and float((a - b).abs().max()) <= 1e-5
+    assert torch.equal(e, exact_ops.apply_polylines_exact(u8, nd, 4.0, 0.5, 2.0, impl="twin"))
+    coord = (depth_ops.signed_power(nd, 2.0) * 4.0).reshape(-1, W).contiguous()
+    want = polylines.polylines_scanline_fused_plain(
+        coord, u8.reshape(-1, W, channels).contiguous(), 0.5, sharp=True, samples=8,
+        k_candidates=4, max_disp=9).reshape(s.shape)
+    assert torch.equal(s, want)
+    # each group of three channels is the three-channel image's render
+    e3 = exact_ops.apply_polylines_exact(u8[..., :3].contiguous(), nd, 4.0, 0.5, 2.0)
+    assert torch.equal(e[..., :3], e3)
+
+
+def test_wide_rows_run_in_the_kernels(dev):
+    """16,384-column rows (over every row kernel's shared memory but the
+    distance kernel's) through the warp, the gather and both polylines
+    kernels: one launch each and the plain version's bits (the warp's gap
+    masks, its colours within 1e-5 on all but under 0.1% of the noise
+    pixels)."""
+    w = 16384
+    rng = np.random.default_rng(2)
+    depth = torch.from_numpy(rng.uniform(0, 255, (1, 6, w)).astype(np.float32)).to(dev)
+    image = torch.from_numpy(rng.random((1, 6, w, 3)).astype(np.float32)).to(dev)
+    from comfystereo_tpu_torch.ops import warp as warp_ops
+    vals = image.movedim(-1, 1).contiguous()
+    idx = torch.from_numpy(rng.integers(0, w, (1, 1, 6, w)).astype(np.int32)).to(dev)
+    coord, colors, max_disp = _k_rows(dev, "noise", 6, w)
+    mods = (warp_kernel, gather, polylines_exact, polylines)
+    before = tuple(m.LAUNCHES for m in mods)
+    a, gap_a = warp_ops.forward_warp(image, depth, 40.0, 0.0, 2.0)
+    g = gather.bounded_take_along_w(vals, idx, w)
+    e = polylines_exact.polylines_exact_rows_fused(coord, colors, 0.0, sharp=True,
+                                                   max_pieces=12, max_disp=max_disp)
+    skw = dict(sharp=True, samples=8, k_candidates=4, max_disp=max_disp)
+    s = polylines.polylines_scanline_fused(coord, colors, 0.0, **skw)
+    torch.cuda.synchronize()
+    assert tuple(m.LAUNCHES for m in mods) == tuple(b + 1 for b in before)
+    b, gap_b = warp_ops.forward_warp(image, depth, 40.0, 0.0, 2.0, impl="twin")
+    _check_warp(a.reshape(6, w, 3), gap_a.reshape(6, w), b.reshape(6, w, 3),
+                gap_b.reshape(6, w), ("noise",), 6)
+    assert torch.equal(g, gather.bounded_take_along_w_plain(vals, idx))
+    assert torch.equal(e, polylines_exact.polylines_exact_rows_fused_plain(
+        coord, colors, 0.0, True, 12, max_disp))
+    assert torch.equal(s, polylines.polylines_scanline_fused_plain(coord, colors, 0.0, **skw))
+
+
+def test_polylines_kernels_take_their_widest_rows(dev):
+    """The widest rows whose planes fit in shared memory and the next (the
+    workspace instances) launch and are bit-equal."""
+    for mod, w_max, kw in (
+            (polylines_exact, polylines_exact.SHARED_WIDTH, dict(max_pieces=12)),
+            (polylines, max(w for w in range(9000, 10000) if polylines.staged(w, 8)),
+             dict(samples=8, k_candidates=4))):
+        for w in (w_max, w_max + 1):
+            coord, colors, max_disp = _k_rows(dev, "noise", 2, w)
+            fused = (mod.polylines_exact_rows_fused if mod is polylines_exact
+                     else mod.polylines_scanline_fused)
+            plain = (mod.polylines_exact_rows_fused_plain if mod is polylines_exact
+                     else mod.polylines_scanline_fused_plain)
+            before = mod.LAUNCHES
+            got = fused(coord, colors, 0.0, sharp=True, max_disp=max_disp, **kw)
+            torch.cuda.synchronize()
+            assert mod.LAUNCHES == before + 1, (mod.__name__, w)
+            if mod is polylines_exact:
+                want = plain(coord, colors, 0.0, True, kw["max_pieces"], max_disp)
+            else:
+                want = plain(coord, colors, 0.0, sharp=True, max_disp=max_disp, **kw)
+            assert torch.equal(got, want), (mod.__name__, w)

@@ -6,31 +6,27 @@ port's counterpart of tests/test_distributed.py, with gloo where a cluster
 of GPUs would use NCCL): frames sharded over both processes, and rows
 sharded over both, with the blur's halo rows and the all-reduced maxima and
 extrema crossing between them. Each worker asserts bit-equality with the
-port's unsharded run; see tests/torch_distributed_worker.py.
+port's unsharded run; see tests/torch_distributed_worker.py. The group
+meets through a file under the test's own temporary directory
+(`file://` rendezvous), so no TCP port is picked and none can be taken by
+another test in between.
 """
 import os
-import socket
 import subprocess
 import sys
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def test_two_process_gloo_pipeline(tmp_path):
-    port = _free_port()
+    rendezvous = tmp_path / "gloo_rendezvous"
     procs, outs = [], []
     for rank in range(2):
         out_file = tmp_path / f"worker{rank}.ok"
         outs.append(out_file)
         procs.append(subprocess.Popen(
             [sys.executable, os.path.join(_HERE, "torch_distributed_worker.py"),
-             str(rank), "2", str(port), str(out_file)],
+             str(rank), "2", str(rendezvous), str(out_file)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs = []
     try:

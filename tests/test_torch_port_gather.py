@@ -34,17 +34,17 @@ def test_caller_shapes_fit_in_shared_memory(vshape, ishape):
     assert (rep, inner) == ((1, 1) if len(vshape) == 3 else (3, vshape[2]))
     need = tgather.smem_bytes(vshape[-1], ishape[-1], rep)
     assert need <= tgather.SMEM_LIMIT
-    tgather.check_fits(vshape[-1], ishape[-1], rep)
+    assert tgather.staged(vshape[-1], ishape[-1], rep)
 
 
 @pytest.mark.parametrize("rep,largest", [(1, 29053), (3, 14525)])
 def test_shared_memory_limit_rule(rep, largest):
-    """Rows up to `largest` columns (M = N) fit; one more raises, naming the
-    limit."""
+    """Rows up to `largest` columns (M = N) are staged in shared memory; one
+    more goes to the kernel's direct instance."""
     assert tgather.smem_bytes(largest, largest, rep) <= tgather.SMEM_LIMIT
-    tgather.check_fits(largest, largest, rep)
-    with pytest.raises(ValueError, match=str(tgather.SMEM_LIMIT)):
-        tgather.check_fits(largest + 1, largest + 1, rep)
+    assert tgather.staged(largest, largest, rep)
+    assert tgather.smem_bytes(largest + 1, largest + 1, rep) > tgather.SMEM_LIMIT
+    assert not tgather.staged(largest + 1, largest + 1, rep)
 
 
 @pytest.mark.parametrize("m,slot", [(1, 4), (2, 8), (4, 8), (5, 8), (6, 12), (1920, 1924),

@@ -316,7 +316,7 @@ FUSED_CASES = [(24, 56, 4.5, 0.0, "fixture"), (24, 56, -4.5, 1.0, "fixture"),
 def test_first_hits_monotone_over_samples(h, w, div, sep, kind, sharp):
     x, coord, _, max_disp = _rows(h, w, div, sep, kind)
     up, dn = (i.long() for i in tkp.hit_indices(x, coord, sharp, 8, 4, max_disp))
-    big = 2 * tkp.KERNEL_K
+    big = 2 * 4                                 # past the 2K candidates of K = 4
     up = torch.where(up < 0, big, up)           # none: past every candidate
     dn = torch.where(dn < 0, big, dn)
     assert bool((up[1:] >= up[:-1]).all()) and bool((dn[1:] <= dn[:-1]).all())

@@ -258,20 +258,23 @@ def test_forward_warp_fused_matches_jax(kind, exponent, impl):
 
 def test_shared_memory_rule():
     """20 B per column, one bit per column and 64 static bytes; the widest
-    row that fits, and a clear error past it before any launch (meta
-    tensors stand for the card's: the check comes first)."""
+    row whose planes fit in shared memory (wider ones take the workspace
+    instances), and past the kernel's 65,536 columns a clear error before
+    any launch (meta tensors stand for the card's: the check comes first)."""
     assert twk.smem_bytes(1920) == 20 * 1920 + 4 * 60 + 64 == 38704
-    assert twk.MAX_WIDTH == 11547
-    assert twk.smem_bytes(twk.MAX_WIDTH) <= twk.SMEM_LIMIT < twk.smem_bytes(twk.MAX_WIDTH + 1)
-    twk.check_fits(twk.MAX_WIDTH)
+    assert twk.SHARED_WIDTH == 11547
+    assert (twk.smem_bytes(twk.SHARED_WIDTH) <= twk.SMEM_LIMIT
+            < twk.smem_bytes(twk.SHARED_WIDTH + 1))
+    assert twk.plane_words(16384) == 5 * 16384 + 512
+    assert twk.MAX_WIDTH == 65536
     w = twk.MAX_WIDTH + 1
     rows = torch.empty((2, w), device="meta")
     image = torch.empty((2, w, 3), device="meta")
     lim = torch.empty((1,), device="meta")
     before = twk.LAUNCHES
-    with pytest.raises(ValueError, match="11547 columns"):
+    with pytest.raises(ValueError, match="65536 columns"):
         twk.warp_rows(rows, rows, image, gradient_threshold=1.5, max_stretch=8, max_disp=6)
-    with pytest.raises(ValueError, match="11547 columns"):
+    with pytest.raises(ValueError, match="65536 columns"):
         twk.warp_rows_fused(rows, lim, lim, image, divergence_px=3.0, separation_px=0.0,
                             exponent=2.0, convergence_point=0.5, gradient_threshold=1.5,
                             max_stretch=8, max_disp=6, height=2)

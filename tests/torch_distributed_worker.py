@@ -1,8 +1,9 @@
 """Worker process for the port's 2-process gloo rehearsal.
 
 Launched by tests/test_torch_port_distributed.py as `python
-torch_distributed_worker.py <rank> <world_size> <port> <out_file>`. Each
-process joins a gloo process group (`tcp://127.0.0.1:<port>`) and checks,
+torch_distributed_worker.py <rank> <world_size> <rendezvous_file>
+<out_file>`. Each process joins a gloo process group that meets through
+the file (`file://<rendezvous_file>`) and checks,
 against the port's unsharded `stereo_pipeline` on the same frames:
 
   1. Frames over both processes: an 8-slot "data" mesh (4 CPU slots per
@@ -22,14 +23,14 @@ import sys
 
 def main() -> None:
     rank, world = int(sys.argv[1]), int(sys.argv[2])
-    port, out_file = sys.argv[3], sys.argv[4]
+    rendezvous, out_file = sys.argv[3], sys.argv[4]
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
     import numpy as np
     import torch
     import torch.distributed as dist
 
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
                             world_size=world, rank=rank)
     try:
         from comfystereo_tpu_torch import StereoConfig, stereo_pipeline

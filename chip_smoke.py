@@ -148,7 +148,22 @@ any failure ends the run with a non-zero exit code:
    their previous design's count. The polylines kernels are timed through
    the fused entries their routes launch. Also the sharded gpu_warp chunk
    beside the unsharded one in turns, on both meshes, and the backward-warp
-   family's ms per 1080p B=12 chunk.
+   family's ms per 1080p B=12 chunk;
+6. the port's benchmark entry (`comfystereo_tpu_torch/bench.py`) at full
+   size: the headline (1080p B=4 gpu_warp) and the five BASELINE configs
+   (512x512 naive; the 1080p polylines sweep, exact and supersampled; 720p
+   B=12 hybrid_edge top-bottom; 4K gpu_warp anaglyph with its mask check;
+   4K B=2 every fill at balance 0 and 0.5), each JSON line as the bench
+   prints it. The counters are set to 0 just before each line and read just
+   after: every kernel its fills need launched and no other, and each
+   line's launches of one pass exactly `BENCH_LAUNCHES`. Each line's pass
+   is then run again with every kernel's plain version in its place, on
+   the same card tensors at the line's shapes (4K included), and must give
+   the same outputs (gpu_warp's colours within 1e-5, all else bit-equal).
+   Config 1's SSIM, config 2's exact-mode SSIM and config 4's mask parity,
+   unrounded, reach the JAX bench's values for the same inputs on the CPU
+   (`BENCH_FLOORS`), and configs 1 and 2 exact differ from the oracle in
+   no more uint8 values than JAX's pair (`BENCH_U8_OFF`: none).
 
 `--kernel-times` only builds and times the flash kernel (beside
 scaled_dot_product_attention), the gather (beside torch.gather), both
@@ -694,23 +709,14 @@ def check_polylines_ss(image255, depths) -> int:
     return count
 
 
-KERNEL_MODULES = ("warp_kernel", "distance", "gather", "polylines_exact", "polylines",
-                  "flash_attention")
-KERNEL_NAMES = {"warp_kernel": "warp_rows", "distance": "edge_distances",
-                "gather": "bounded_take_along_w", "polylines_exact": "polylines_exact_rows",
-                "polylines": "polylines_scanline", "flash_attention": "flash_attention"}
-
-
 def reset_launches() -> None:
-    import importlib
-    for mod in KERNEL_MODULES:
-        importlib.import_module(f"comfystereo_tpu_torch.kernels.{mod}").LAUNCHES = 0
+    from comfystereo_tpu_torch import kernels
+    kernels.reset_launch_counts()
 
 
 def read_launches():
-    import importlib
-    return {KERNEL_NAMES[mod]: importlib.import_module(
-        f"comfystereo_tpu_torch.kernels.{mod}").LAUNCHES for mod in KERNEL_MODULES}
+    from comfystereo_tpu_torch import kernels
+    return kernels.launch_counts()
 
 
 # Kernels redesigned after their port, and in which PR.
@@ -3076,6 +3082,224 @@ def phase_dryrun_and_vr_nodes(dev, smi: str):
     return dict(report, vr_status_cuda=cuda_line)
 
 
+# --- phase 6: the port's benchmark entry ------------------------------------
+
+# The repository's bench.py (JAX on the CPU) through its own `_validate` and
+# config 4's mask check, on the same inputs at the same oracle widths (512;
+# config 2's exact mode at 256): `python tests/torch_bench_floors.py`
+# (JAX 0.9.0). The port's accuracy on the card must reach these unrounded
+# values (its lines print them rounded to 5 and 6 decimals, as bench.py's
+# do; one uint8 value one LSB off moves either SSIM by at least 2.5e-9 at
+# these widths, the same script), and its stereo pair may differ from the
+# oracle's in no more uint8 values than JAX's does (none, for both).
+BENCH_ORACLE_WIDTH = 512
+BENCH_FLOORS = {("1_512_naive_sbs", "fill_region_ssim"): 0.9999999999992818,
+                ("2_1080p_polylines_sweep", "exact_mode_ssim"): 0.999999999998379,
+                ("4_4k_warp_anaglyph_mask", "mask_exact_parity"): 1.0}
+BENCH_U8_OFF = {("1_512_naive_sbs", "u8_off_oracle"): 0,
+                ("2_1080p_polylines_sweep", "exact_mode_u8_off_oracle"): 0}
+# Launches of one pass of each bench line (one pipeline call; config 2 its
+# four sweep points, config 5 its 22 fill x balance calls): a number is
+# exact, ANY means at least one, and a kernel not listed must not launch.
+# The gather fills (GATHER_FILLS) launch it once per pass of their sorts,
+# so it is held to at least one.
+ANY = "any"
+BENCH_LAUNCHES = {
+    "headline": {"warp_rows": 2, "edge_distances": 1},
+    "1_512_naive_sbs": {"bounded_take_along_w": ANY},
+    "2_1080p_polylines_sweep": {"polylines_exact_rows": 8, "edge_distances": 4},
+    "2_1080p_polylines_sweep/supersampled": {"polylines_scanline": 8, "edge_distances": 4},
+    "3_720p_video_hybrid_edge_tb": {"bounded_take_along_w": ANY, "edge_distances": 1},
+    "4_4k_warp_anaglyph_mask": {"warp_rows": 2, "edge_distances": 1},
+    # balance 1: the right eye is the copied source, the left eye one warp.
+    "4_4k_warp_anaglyph_mask/mask_check": {"warp_rows": 1},
+    # gpu_warp 2 balances x 2 eyes; the exact polylines route for
+    # polylines_sharp, polylines_soft and hybrid_edge_plus, 2 x 2 each.
+    "5_video2stereo_4k_all_fills": {"warp_rows": 4, "edge_distances": 22,
+                                    "polylines_exact_rows": 12, "bounded_take_along_w": ANY},
+}
+# gpu_warp's colours against the plain pass: check_warp's bound on the
+# fixture (the warp kernel's colours against its plain version's).
+BENCH_WARP_ATOL = 1e-5
+
+
+def _check_bench_launches(label: str, got: dict) -> None:
+    want = BENCH_LAUNCHES[label]
+    for k, n in got.items():
+        expect = want.get(k, 0)
+        if (n < 1) if expect == ANY else (n != expect):
+            raise AssertionError(f"phase 6 {label}: {k} launched {n} times, expected "
+                                 f"{expect} (all: {got})")
+
+
+def _check_bench_totals(name: str, total: dict) -> None:
+    """Over the whole run of a line (timing and accuracy calls), every
+    kernel its fills need launched and no other."""
+    needed = {k for key, want in BENCH_LAUNCHES.items() if key.split("/")[0] == name
+              for k in want}
+    for k, n in total.items():
+        if (n > 0) != (k in needed):
+            raise AssertionError(f"phase 6 {name}: {k} launched {n} times in the whole "
+                                 f"run of the line (needed: {sorted(needed)})")
+
+
+def plain_call_sites():
+    """(module, name, plain version) of every kernel wrapper that the
+    pipeline's ops call, as each module imports it."""
+    from comfystereo_tpu_torch.kernels import (distance, gather, polylines, polylines_exact,
+                                               warp_kernel)
+    from comfystereo_tpu_torch.ops import blur, fills, warp
+    from comfystereo_tpu_torch.ops import polylines as ops_polylines
+    from comfystereo_tpu_torch.ops import polylines_exact as ops_exact
+
+    def take(values, idx, max_disp):
+        del max_disp
+        return gather.bounded_take_along_w_plain(values, idx)
+
+    return ((warp, "warp_rows_fused", warp_kernel.warp_rows_fused_plain),
+            (blur, "edge_weights_fused", distance.edge_weights_plain),
+            (fills, "bounded_take_along_w", take),
+            (ops_polylines, "bounded_take_along_w", take),
+            (ops_polylines, "polylines_scanline_fused", polylines.polylines_scanline_fused_plain),
+            (ops_exact, "polylines_exact_rows_fused",
+             polylines_exact.polylines_exact_rows_fused_plain))
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Within it, every kernel wrapper that the pipeline's ops call is its
+    plain version, on card tensors too."""
+    sites = plain_call_sites()
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
+    try:
+        for mod, name, plain in sites:
+            setattr(mod, name, plain)
+        yield
+    finally:
+        for mod, name, wrapper in saved:
+            setattr(mod, name, wrapper)
+
+
+def _output_leaves(out, path=""):
+    if isinstance(out, dict):
+        for k, v in out.items():
+            yield from _output_leaves(v, f"{path}/{k}")
+    elif isinstance(out, (list, tuple)):
+        for i, v in enumerate(out):
+            yield from _output_leaves(v, f"{path}/{i}")
+    else:
+        yield path, out
+
+
+def check_bench_plain(label: str, cfgs, imgs, dms, dev) -> float:
+    """One pass of a bench line (each configuration on the line's full-size
+    input) with the kernels against the same pass with every kernel's plain
+    version in its place (`plain_kernels`), on the same card tensors, one
+    configuration at a time: gpu_warp's colours within BENCH_WARP_ATOL,
+    every other output (masks, depths, every other fill's pair) bit-equal,
+    all finite; the plain pass launches no kernel. Returns the max |err|."""
+    import numpy as np
+    import torch
+    from comfystereo_tpu_torch.pipeline import stereo_pipeline
+    x, d = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (imgs, dms))
+    worst = 0.0
+    for cfg in cfgs:
+        got = stereo_pipeline(x, d, cfg)
+        reset_launches()
+        with plain_kernels():
+            want = stereo_pipeline(x, d, cfg)
+        sync()
+        stray = {k: n for k, n in read_launches().items() if n}
+        if stray:
+            raise AssertionError(f"phase 6 {label}: the plain pass launched {stray}")
+        tol = BENCH_WARP_ATOL if cfg.fill_technique == "gpu_warp" else 0.0
+        what = (f"{cfg.fill_technique} balance {cfg.stereo_balance} div {cfg.divergence} "
+                f"conv {cfg.convergence_point} exact {cfg.polylines_exact}")
+        leaves, plain = list(_output_leaves(got)), list(_output_leaves(want))
+        if [p for p, _ in leaves] != [p for p, _ in plain]:
+            raise AssertionError(f"phase 6 {label} {what}: outputs {[p for p, _ in leaves]}, "
+                                 f"plain {[p for p, _ in plain]}")
+        for (path, a), (_, b) in zip(leaves, plain):
+            if not isinstance(a, torch.Tensor):
+                if a != b:
+                    raise AssertionError(f"phase 6 {label} {what}: {path} {a!r} != {b!r}")
+                continue
+            if a.shape != b.shape or a.dtype != b.dtype or a.device != b.device:
+                raise AssertionError(f"phase 6 {label} {what}: {path} is {a.dtype} "
+                                     f"{tuple(a.shape)} on {a.device}, plain {b.dtype} "
+                                     f"{tuple(b.shape)} on {b.device}")
+            if a.is_floating_point() and not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"phase 6 {label} {what}: {path} is not finite")
+            err = float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+            if path.startswith("/stereo/") and err <= tol:
+                worst = max(worst, err)
+            elif not torch.equal(a, b):
+                raise AssertionError(f"phase 6 {label} {what}: {path} differs from the plain "
+                                     f"pass by up to {err} (bound {tol})")
+        del got, want
+    del x, d
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_bench(dev, smi: str) -> dict:
+    """`python -m comfystereo_tpu_torch.bench --full` on the card at full
+    size: the headline (1080p B=4 gpu_warp) and the five BASELINE configs
+    (4K included), each line printed as the bench prints it. Every launch
+    counter is set to 0 just before each of them and read just after: each
+    must have launched the kernels its fills need (none other), and each
+    line's launches of one pass must be `BENCH_LAUNCHES`'. Then each line's
+    pass is held against its plain pass at the line's own shapes
+    (`check_bench_plain`). The accuracy must reach `BENCH_FLOORS` and
+    `BENCH_U8_OFF`, the JAX bench's own values for the same inputs on the
+    CPU, unrounded."""
+    from comfystereo_tpu_torch import bench
+    t0 = time.perf_counter()
+    oracle = bench.load_oracle()
+    label = bench.card(dev)
+    if label != smi:
+        raise AssertionError(f"phase 6: the bench reads the card as {label!r}, not {smi!r}")
+    reset_launches()
+    head = bench.run_headline(dev)
+    totals = {"headline": read_launches()}
+    _check_bench_launches("headline", head["launches"])
+    plain_errs = {"headline": check_bench_plain("headline", *bench.headline_case(
+        *bench.HEADLINE_SHAPE), dev)}
+    by = {"headline": head}
+    for n, fn in bench.CONFIGS.items():
+        h, w, batch = bench.FULL_SHAPES[n]
+        reset_launches()
+        r = dict(fn(dev, oracle, BENCH_ORACLE_WIDTH, h, w, batch), card=label)
+        total = read_launches()
+        print(json.dumps(bench.printed(r)), flush=True)
+        name = r["config"]
+        _check_bench_launches(name, r["launches"])
+        if "launches_supersampled" in r:
+            _check_bench_launches(name + "/supersampled", r["launches_supersampled"])
+        if "mask_check_launches" in r:
+            _check_bench_launches(name + "/mask_check", r["mask_check_launches"])
+        by[name], totals[name] = r, total
+        plain_errs[name] = check_bench_plain(name, *bench.config_cases(n, h, w, batch), dev)
+    for name, total in totals.items():
+        _check_bench_totals(name, total)
+    for (name, key), floor in BENCH_FLOORS.items():
+        if not by[name][key] >= floor:
+            raise AssertionError(f"phase 6 {name}: {key} {by[name][key]!r} below the JAX "
+                                 f"bench's {floor!r} on the same inputs")
+    for (name, key), most in BENCH_U8_OFF.items():
+        if not by[name][key] <= most:
+            raise AssertionError(f"phase 6 {name}: {by[name][key]} uint8 values differ from "
+                                 f"the oracle's ({key}), JAX's bench {most}")
+    accuracy = {f"{name}/{key}": by[name][key] for name, key in (*BENCH_FLOORS, *BENCH_U8_OFF)}
+    seconds = time.perf_counter() - t0
+    log(f"phase 6 ok: the bench's headline and five configs on {smi} in {seconds:.1f} s; "
+        f"each line's pass equal to its plain pass (gpu_warp colours max |err| by line "
+        f"{json.dumps(plain_errs)}); accuracy unrounded {json.dumps(accuracy)}; launches by "
+        f"line {json.dumps(totals)}")
+    return {"seconds": round(seconds, 1), "launches": totals, "plain_max_abs_err": plain_errs,
+            "accuracy": accuracy}
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3148,6 +3372,7 @@ def main() -> int:
     pipeline["stereodiffusion_standard"] = dict(
         std_times, runs=std["runs"], null_text_grad=std["grad"], card_vs_cpu=std_cpu_errs)
     log(f"phase 5 ok: StereoDiffusion times on {name} ({smi})")
+    pipeline["bench"] = phase_bench(dev, smi)
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

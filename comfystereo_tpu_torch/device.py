@@ -42,3 +42,15 @@ def true_divide(x: torch.Tensor, divisor: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return x / divisor
     return x / torch.full((), divisor, dtype=torch.float32, device=x.device)
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root on every device. PyTorch's CPU
+    builds may vectorise float32 `sqrt` as a reciprocal-square-root estimate
+    and a Newton step, which is off by one ulp in about a fifth of values
+    (XLA and numpy round correctly). A float32 square root taken in float64
+    and rounded once is the correctly rounded one, since float64 holds more
+    than 2 x 24 + 2 bits; on CUDA `torch.sqrt` is IEEE already."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)

@@ -2,10 +2,13 @@
 
 Port of `comfystereo_tpu/diffusion/schedulers.py`: a frozen schedule of
 host constants plus step functions. Timesteps and loop indices are Python
-ints (the port's sampling loops run on the host); the coefficients are
-float32 0-d tensors computed in the JAX package's float32 forms, so they
-round as they do there. They live on the CPU and broadcast onto tensors of
-any device.
+ints (the port's sampling loops run on the host). The coefficients are
+computed on the host as numpy float32 scalars, in the JAX package's
+expression forms and order, so they round as JAX's eager float32 does (and
+do not depend on the host's vectorised `torch.sqrt`, which some CPU builds
+round to within an ulp only). Each then becomes a 0-d tensor on the
+sample's device: a 0-d tensor on the card divides truly, where a Python or
+CPU scalar would be multiplied by its rounded reciprocal.
 """
 from __future__ import annotations
 
@@ -14,6 +17,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..device import true_divide
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,8 +36,13 @@ class DiffusionSchedule:
         return self.num_train_timesteps // self.num_inference_steps
 
 
-def _f32(x) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32)
+_ONE = np.float32(1.0)
+
+
+def _on(x: np.float32, like: torch.Tensor) -> torch.Tensor:
+    """A host float32 scalar as a 0-d float32 tensor on `like`'s device (a
+    fill, so no copy from the host and no wait for the card)."""
+    return torch.full((), float(x), dtype=torch.float32, device=like.device)
 
 
 def _beta_schedule(num_train_timesteps: int = 1000, beta_start: float = 0.00085,
@@ -64,42 +74,46 @@ def make_ddim(num_inference_steps: int = 50, num_train_timesteps: int = 1000,
         num_inference_steps=num_inference_steps)
 
 
-def _alpha_at(sched: DiffusionSchedule, t) -> torch.Tensor:
-    """alphas_cumprod[t] as a float32 0-d tensor; t < 0 -> final_alpha_cumprod."""
+def _alpha_at(sched: DiffusionSchedule, t) -> np.float32:
+    """alphas_cumprod[t] as a host float32; t < 0 -> final_alpha_cumprod."""
     t = int(t)
     if t < 0:
-        return _f32(sched.final_alpha_cumprod)
-    return _f32(sched.alphas_cumprod[min(t, sched.num_train_timesteps - 1)])
+        return np.float32(sched.final_alpha_cumprod)
+    return np.float32(sched.alphas_cumprod[min(t, sched.num_train_timesteps - 1)])
+
+
+def _ddim_transfer(a_t: np.float32, a_to: np.float32, model_output: torch.Tensor,
+                   sample: torch.Tensor) -> torch.Tensor:
+    """sqrt(a_to) * pred_x0 + sqrt(1 - a_to) * eps, pred_x0 from (a_t, eps)."""
+    beta_t = _ONE - a_t
+    pred_x0 = ((sample - _on(np.sqrt(beta_t), sample) * model_output)
+               / _on(np.sqrt(a_t), sample))
+    direction = _on(np.sqrt(_ONE - a_to), sample) * model_output
+    return _on(np.sqrt(a_to), sample) * pred_x0 + direction
 
 
 def ddim_step(sched: DiffusionSchedule, model_output: torch.Tensor,
               t, sample: torch.Tensor, eta: float = 0.0) -> torch.Tensor:
     """One deterministic DDIM denoising step: x_t -> x_{t-ratio}."""
     del eta
-    a_t = _alpha_at(sched, t)
-    a_prev = _alpha_at(sched, int(t) - sched.step_ratio())
-    beta_t = 1.0 - a_t
-    pred_x0 = (sample - torch.sqrt(beta_t) * model_output) / torch.sqrt(a_t)
-    direction = torch.sqrt(1.0 - a_prev) * model_output
-    return torch.sqrt(a_prev) * pred_x0 + direction
+    return _ddim_transfer(_alpha_at(sched, t),
+                          _alpha_at(sched, int(t) - sched.step_ratio()),
+                          model_output, sample)
 
 
 def ddim_next_step(sched: DiffusionSchedule, model_output: torch.Tensor,
                    t, sample: torch.Tensor) -> torch.Tensor:
     """Inverse DDIM step x_t -> x_{t+ratio} (inversion)."""
     cur_t = min(int(t) - sched.step_ratio(), sched.num_train_timesteps - 1)
-    a_t = _alpha_at(sched, cur_t)
-    a_next = _alpha_at(sched, t)
-    beta_t = 1.0 - a_t
-    pred_x0 = (sample - torch.sqrt(beta_t) * model_output) / torch.sqrt(a_t)
-    direction = torch.sqrt(1.0 - a_next) * model_output
-    return torch.sqrt(a_next) * pred_x0 + direction
+    return _ddim_transfer(_alpha_at(sched, cur_t), _alpha_at(sched, t),
+                          model_output, sample)
 
 
 def add_noise(sched: DiffusionSchedule, original: torch.Tensor,
               noise: torch.Tensor, t) -> torch.Tensor:
     a_t = _alpha_at(sched, t)
-    return torch.sqrt(a_t) * original + torch.sqrt(1.0 - a_t) * noise
+    return (_on(np.sqrt(a_t), original) * original
+            + _on(np.sqrt(_ONE - a_t), original) * noise)
 
 
 def scale_model_input(sched: DiffusionSchedule, sample: torch.Tensor,
@@ -107,8 +121,8 @@ def scale_model_input(sched: DiffusionSchedule, sample: torch.Tensor,
     """DDIM: identity. Euler: divide by sqrt(sigma^2+1)."""
     if sched.sigmas is None:
         return sample
-    sigma = _f32(sched.sigmas[_sigma_index(sched, t)])
-    return sample / torch.sqrt(sigma * sigma + 1.0)
+    sigma = np.float32(sched.sigmas[_sigma_index(sched, t)])
+    return sample / _on(np.sqrt(sigma * sigma + _ONE), sample)
 
 
 def make_euler(num_inference_steps: int = 50, num_train_timesteps: int = 1000,
@@ -135,11 +149,11 @@ def _sigma_index(sched: DiffusionSchedule, t) -> int:
 def euler_step(sched: DiffusionSchedule, model_output: torch.Tensor,
                t, sample: torch.Tensor) -> torch.Tensor:
     idx = _sigma_index(sched, t)
-    sigma = _f32(sched.sigmas[idx])
-    pred_x0 = sample - sigma * model_output
-    derivative = (sample - pred_x0) / sigma
-    dt = _f32(sched.sigmas[idx + 1]) - sigma
-    return sample + derivative * dt
+    sigma = np.float32(sched.sigmas[idx])
+    pred_x0 = sample - _on(sigma, sample) * model_output
+    derivative = (sample - pred_x0) / _on(sigma, sample)
+    dt = np.float32(sched.sigmas[idx + 1]) - sigma
+    return sample + derivative * _on(dt, sample)
 
 
 def pndm_skip_timesteps(sched: DiffusionSchedule, strength: float):
@@ -187,25 +201,27 @@ def _pndm_prev_sample(sched: DiffusionSchedule, sample, t, prev_t,
     """The PNDM transfer formula (published form)."""
     a_t = _alpha_at(sched, t)
     a_prev = _alpha_at(sched, prev_t)
-    b_t = 1.0 - a_t
-    b_prev = 1.0 - a_prev
-    coeff = torch.sqrt(a_prev / a_t)
-    denom = a_t * torch.sqrt(b_prev) + torch.sqrt(a_t * b_t * a_prev)
-    return coeff * sample - (a_prev - a_t) * model_output / denom
+    b_t = _ONE - a_t
+    b_prev = _ONE - a_prev
+    coeff = np.sqrt(a_prev / a_t)
+    denom = a_t * np.sqrt(b_prev) + np.sqrt(a_t * b_t * a_prev)
+    return (_on(coeff, sample) * sample
+            - _on(a_prev - a_t, sample) * model_output / _on(denom, sample))
 
 
 def _plms_output(counter: int, model_output, e3, e2, e1, e0):
     """The published counter branches: plain eps, the Heun average, then
-    2nd-, 3rd- and 4th-order Adams-Bashforth."""
+    2nd-, 3rd- and 4th-order Adams-Bashforth (divided truly on every
+    device: the card would multiply by the rounded 1/12 and 1/24)."""
     if counter == 0:
         return model_output
     if counter == 1:
-        return (model_output + e3) / 2.0
+        return true_divide(model_output + e3, 2.0)
     if counter == 2:
-        return (3.0 * e3 - e2) / 2.0
+        return true_divide(3.0 * e3 - e2, 2.0)
     if counter == 3:
-        return (23.0 * e3 - 16.0 * e2 + 5.0 * e1) / 12.0
-    return (55.0 * e3 - 59.0 * e2 + 37.0 * e1 - 9.0 * e0) / 24.0
+        return true_divide(23.0 * e3 - 16.0 * e2 + 5.0 * e1, 12.0)
+    return true_divide(55.0 * e3 - 59.0 * e2 + 37.0 * e1 - 9.0 * e0, 24.0)
 
 
 def pndm_step(sched: DiffusionSchedule, state: PNDMState,
@@ -226,7 +242,7 @@ def pndm_step(sched: DiffusionSchedule, state: PNDMState,
         mo = model_output
         cur_sample = sample
     elif len(ets) == 1 and state.counter == 1:
-        mo = (model_output + ets[-1]) / 2.0
+        mo = true_divide(model_output + ets[-1], 2.0)
         sample = cur_sample
         cur_sample = None
     else:
@@ -283,4 +299,4 @@ def scheduler_step(sched: DiffusionSchedule, model_output: torch.Tensor,
 def to_sigma_space(sched: DiffusionSchedule, sample: torch.Tensor, t):
     """Alpha-parameterised latent (what DDIM inversion produces) -> Euler's
     sigma parameterisation: divide by sqrt(alphas_cumprod[t])."""
-    return sample / torch.sqrt(_alpha_at(sched, t))
+    return sample / _on(np.sqrt(_alpha_at(sched, t)), sample)

@@ -37,6 +37,7 @@ from typing import Tuple
 
 import torch
 
+from ..device import sqrt
 from . import _common
 from ..ops import depth as depth_ops
 from ..ops import scan
@@ -175,7 +176,7 @@ def _finish(src, zbest, image, max_disp):
     t = torch.where(~has_l, 1.0, t)
     t = torch.where(~has_r, 0.0, t)
     left_is_bg = left_z < right_z
-    t_biased = torch.where(left_is_bg, torch.sqrt(t), 1.0 - torch.sqrt(1.0 - t))
+    t_biased = torch.where(left_is_bg, sqrt(t), 1.0 - sqrt(1.0 - t))
     gap_src = left_src * (1.0 - t_biased) + right_src * t_biased
 
     src = torch.where(gap & (has_l | has_r), gap_src, src)

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from . import scan
-from ..device import true_divide
+from ..device import sqrt, true_divide
 from ..kernels.distance import edge_masks, sobel_x  # noqa: F401  (the blur's own)
 from ..kernels.distance import distance_weight, edge_weights_fused
 
@@ -149,7 +149,7 @@ def edge_selective_blur(depth: torch.Tensor, sigma: float,
     edge_selective_blur_depth_map, :1283-1309)."""
     gx = sobel_x(depth)
     gy = sobel_x(depth.transpose(-1, -2)).transpose(-1, -2)
-    mag = torch.sqrt(gx * gx + gy * gy)
+    mag = sqrt(gx * gx + gy * gy)
     weight = torch.clamp(true_divide(mag, edge_threshold), max=1.0)
     blurred = gaussian_blur(depth, sigma)
     return (1.0 - weight) * depth + weight * blurred

@@ -1003,3 +1003,40 @@ def test_polylines_kernels_take_their_widest_rows(dev):
             else:
                 want = plain(coord, colors, 0.0, sharp=True, max_disp=max_disp, **kw)
             assert torch.equal(got, want), (mod.__name__, w)
+
+
+def test_sqrt_card_bit_equal_to_cpu(dev):
+    """`device.sqrt` rounds correctly on both devices, so the warp's gap
+    interpolation and the schedulers take the same square roots."""
+    from comfystereo_tpu_torch.device import sqrt
+    x = torch.rand(1 << 20) * 1e3
+    assert torch.equal(sqrt(x.to(dev)).cpu(), sqrt(x))
+
+
+def test_scheduler_steps_card_bit_equal_to_cpu(dev):
+    """The coefficients are host float32 scalars placed as 0-d tensors on
+    the sample's device, so every DDIM, Euler and PNDM step gives the CPU's
+    bits on the card (the card divides by a 0-d card tensor truly)."""
+    from comfystereo_tpu_torch.diffusion import schedulers as s
+    rng = np.random.default_rng(0)
+    x, e = (torch.from_numpy(rng.standard_normal((2, 4, 64, 64)).astype(np.float32))
+            for _ in range(2))
+    ddim, euler = s.make_ddim(20), s.make_euler(20)
+    for t in (1, 451, 951):
+        for fn in (lambda a, b: s.ddim_step(ddim, b, t, a),
+                   lambda a, b: s.ddim_next_step(ddim, b, t, a),
+                   lambda a, b: s.add_noise(ddim, a, b, t),
+                   lambda a, b: s.to_sigma_space(ddim, a, t),
+                   lambda a, b: s.scale_model_input(euler, a, t),
+                   lambda a, b: s.euler_step(euler, b, t, a)):
+            assert torch.equal(fn(x.to(dev), e.to(dev)).cpu(), fn(x, e))
+    pndm = s.make_pndm(20)
+    ts = [int(v) for v in s.pndm_skip_timesteps(pndm, 0.6)]
+    cpu = (x, torch.zeros((4,) + x.shape), torch.zeros(x.shape))
+    card = tuple(v.to(dev) for v in cpu)
+    for i in range(6):
+        eps = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+        cpu = s.pndm_scan_step(pndm, i, ts[i], cpu[1], cpu[2], eps, cpu[0])
+        card = s.pndm_scan_step(pndm, i, ts[i], card[1], card[2], eps.to(dev), card[0])
+        for a, b in zip(card, cpu):
+            assert torch.equal(a.cpu(), b), i

@@ -1,0 +1,188 @@
+"""A run end to end on the CPU at a tiny size, its last line, its refusals,
+and a cell added by new files alone."""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import shutil
+import subprocess
+import sys
+import threading
+import time
+from pathlib import Path
+
+import pytest
+
+from stereo_bench import run
+from stereo_bench.conftest import BENCH, CELLS
+
+HERE = Path(__file__).resolve().parent
+REPO = HERE.parent
+KEYS = ["correct", "attempted", "failed", "metrics", "device"]
+
+
+def drive(root: Path, workload: str, trace: int, seed: int = 2 ** 31 + 99, cwd=REPO,
+          device="cpu", env=None):
+    """Run the cell in a fresh process, as the benchmark's command does."""
+    argv = ["--workload", workload, "--seed", str(seed), "--seconds", "0.5", "--trace",
+            str(trace)] + (["--device", device] if device else [])
+    code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); from pathlib import Path; "
+            f"from stereo_bench import run; sys.exit(run.main({argv!r}, "
+            f"bench_path=Path({str(root.parent / 'BENCHMARK.json')!r}), root=Path({str(root)!r})))")
+    return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=cwd, timeout=600, env=env)
+
+
+def last_line(out: str):
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def test_forbidden_names_are_whole_top_level_names():
+    names = ["jax.numpy", "comfystereo_tpu.ops", "comfystereo_tpu_torch.ops", "jaxlib",
+             "flax.linen", "numpy", "jaxtyping", "comfystereo_tpu_torch"]
+    assert run.forbidden_modules(names) == ["comfystereo_tpu", "flax", "jax", "jaxlib"]
+    assert run.forbidden_modules(["comfystereo_tpu_torch.nodes", "jaxtyping"]) == []
+
+
+@pytest.mark.parametrize("trace", [0, 1])
+@pytest.mark.parametrize("workload", CELLS)
+def test_cell_runs_end_to_end_on_cpu(tiny_root, workload, trace):
+    proc = drive(tiny_root, workload, trace)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = last_line(proc.stdout)
+    want = KEYS + (["breakdown"] if trace else []) + ["checks"]
+    assert list(line) == want
+    assert line["correct"] is True and line["failed"] == 0 and line["attempted"] > 0
+    group = BENCH["per_layer" if trace else "end_to_end"]
+    names = {m["name"] for m in group if workload in m.get("workloads", [workload])}
+    assert set(line["metrics"]) <= names
+    if not trace:
+        assert set(line["metrics"]) == names  # host-clock metrics read on any device
+    for m in line["metrics"].values():
+        assert set(m) == {"value", "unit"}
+    assert line["device"]["platform"] == "cpu"  # never a device name for a CPU run
+    err = proc.stderr.strip().splitlines()
+    assert all(e.startswith("check ") for e in err[-len(line["checks"]):])
+
+
+@pytest.mark.parametrize("in_flight", [0, 2])
+def test_window_counts_every_call_and_keeps_its_outputs(in_flight):
+    """Every call submitted is collected and counted, in order; with
+    `in_flight` the next call is submitted before the last is collected,
+    on another thread."""
+    order, threads = [], set()
+
+    def submit(v):
+        order.append(("submit", v))
+        return v + 1
+
+    def collect(x):
+        threads.add(threading.get_ident())
+        time.sleep(0.002)
+        order.append(("collect", x - 1))
+        return 10 * x
+
+    win, kept = run.run_window(submit, collect, [0, 1, 2], 0.05, [0, 4], in_flight)
+    assert win.calls == len(win.latencies_s) >= 5 and win.elapsed_s >= 0.05
+    assert kept == {0: 10, 4: 20}
+    assert [v for k, v in order if k == "collect"] == [i % 3 for i in range(win.calls)]
+    assert (threading.get_ident() in threads) == (in_flight == 0)
+    assert (order[1] == ("submit", 1)) == (in_flight > 0)
+
+
+def test_window_raises_what_collect_raised():
+    def collect(x):
+        raise RuntimeError("lost")
+
+    with pytest.raises(RuntimeError, match="lost"):
+        run.run_window(lambda v: v, collect, [0], 0.01, [0], 2)
+
+
+def test_refuses_without_a_card(tiny_root):
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the refusal is for machines without one")
+    proc = drive(tiny_root, CELLS[0], 0, device=None)
+    assert proc.returncode != 0 and not proc.stdout.strip()
+    assert "CUDA" in proc.stderr
+
+
+def test_fails_without_the_program(tmp_path):
+    """A directory that holds only BENCHMARK.json and the benchmark's
+    folder: no result, another exit code than 0."""
+    shutil.copytree(HERE, tmp_path / "stereo_bench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(REPO / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "stereo_bench/run.py", "--workload", CELLS[0],
+                           "--seed", "5", "--seconds", "1", "--trace", "0", "--device", "cpu"],
+                          capture_output=True, text=True, cwd=tmp_path, timeout=600, env=env)
+    assert proc.returncode != 0
+    assert not proc.stdout.strip().startswith("{") or "correct" not in proc.stdout
+
+
+def _digest(root: Path):
+    return {p.relative_to(root): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in root.rglob("*") if p.is_file() and "__pycache__" not in p.parts}
+
+
+def test_new_cell_by_new_files_alone(tiny_root):
+    """A configuration, a traffic mix and a per-layer metric added as new
+    files and new entries in BENCHMARK.json run with no file of the
+    benchmark edited."""
+    before = _digest(tiny_root)
+    cfg = json.loads((tiny_root / "configs" / "gpu_warp_default.json").read_text())
+    cfg.update(name="throwaway_cfg")
+    cfg["settings"]["divergence"] = 2.0
+    (tiny_root / "configs" / "throwaway_cfg.json").write_text(json.dumps(cfg))
+    mix = json.loads((tiny_root / "traffic" / "video1080_b12.json").read_text())
+    mix.update(name="throwaway_mix", pan=[1, 1], frames_per_call=2, distinct=4)
+    (tiny_root / "traffic" / "throwaway_mix.json").write_text(json.dumps(mix))
+    (tiny_root / "metrics" / "throwaway_calls.py").write_text(
+        "def read(ctx):\n    return float(ctx.trace.n_calls) if ctx.trace else None\n")
+    cell = "throwaway_cfg.throwaway_mix"
+    (tiny_root / "limits" / f"{cell}.json").write_text(
+        (tiny_root / "limits" / "gpu_warp_default.video1080_b12.json").read_text())
+    bench_path = tiny_root.parent / "BENCHMARK.json"
+    bench = json.loads(bench_path.read_text())
+    bench["configs"].append({"name": "throwaway_cfg", "source": "https://example.org",
+                             "file": "stereo_bench/configs/throwaway_cfg.json", "reduced": [],
+                             "why": "a test"})
+    bench["workloads"].append({"name": cell, "config": "throwaway_cfg",
+                               "traffic": "throwaway_mix", "chips": 1, "why": "a test"})
+    bench["end_to_end"][0]["workloads"].append(cell)
+    bench["per_layer"].append({"name": "throwaway_calls", "unit": "calls", "better": "higher",
+                               "source": "device_trace", "layer": "harness",
+                               "moves": "frames_per_s", "workloads": [cell]})
+    bench_path.write_text(json.dumps(bench))
+    for trace in (0, 1):
+        proc = drive(tiny_root, cell, trace)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        line = last_line(proc.stdout)
+        assert line["correct"] is True
+        if trace:
+            assert line["metrics"]["throwaway_calls"]["value"] == 3.0  # the traced calls
+        else:
+            assert set(line["metrics"]) == {"frames_per_s", "setup_s"}
+    after = _digest(tiny_root)
+    assert {k: v for k, v in after.items() if k in before} == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workload", CELLS)
+def test_cell_on_the_card(tmp_path, workload):
+    """One short run of each cell at its full size on the card."""
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    root = tmp_path / "stereo_bench"
+    shutil.copytree(HERE, root, ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(REPO / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    proc = subprocess.run([sys.executable, str(root / "run.py"), "--workload", workload,
+                           "--seed", "4000000001", "--seconds", "2", "--trace", "0"],
+                          capture_output=True, text=True, cwd=REPO, timeout=900,
+                          env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = last_line(proc.stdout)
+    assert line["correct"] is True and line["device"]["platform"] == "gpu"

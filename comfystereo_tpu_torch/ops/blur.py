@@ -27,6 +27,7 @@ from . import scan
 from ..device import sqrt, true_divide
 from ..kernels.distance import edge_masks, sobel_x  # noqa: F401  (the blur's own)
 from ..kernels.distance import distance_weight, edge_weights_fused
+from ..utils.profiling import span
 
 
 def _edge_pad(x: torch.Tensor, dim: int, left: int, right: int) -> torch.Tensor:
@@ -101,21 +102,25 @@ def directional_motion_blur(depth: torch.Tensor, blur_strength: float,
     if blur_strength <= 0:
         return depth, depth
     n = int(round(blur_strength))
-    depth = depth.float()
-    h, w = depth.shape[-2:]
-    wl, wr = edge_weights_fused(depth.reshape(-1, w).contiguous(),
-                                edge_threshold=edge_threshold,
-                                mask_radius=int(blur_mask_width),
-                                falloff=_f32(falloff_exponent), height=h)
-    wl, wr = wl.reshape(depth.shape), wr.reshape(depth.shape)
-    if vert_smooth_px > 0:
-        wl = torch.clamp(box_blur_h(wl, int(vert_smooth_px)), 0.0, 1.0)
-        wr = torch.clamp(box_blur_h(wr, int(vert_smooth_px)), 0.0, 1.0)
-
-    blurred = box_blur_w(depth, n)
-    left = wl * blurred + (1.0 - wl) * depth
-    right = wr * blurred + (1.0 - wr) * depth
-    return left, right
+    with span("blur.directional"):
+        depth = depth.float()
+        h, w = depth.shape[-2:]
+        with span("blur.edge_weights"):
+            wl, wr = edge_weights_fused(depth.reshape(-1, w).contiguous(),
+                                        edge_threshold=edge_threshold,
+                                        mask_radius=int(blur_mask_width),
+                                        falloff=_f32(falloff_exponent), height=h)
+        wl, wr = wl.reshape(depth.shape), wr.reshape(depth.shape)
+        if vert_smooth_px > 0:
+            with span("blur.box_h"):
+                wl = torch.clamp(box_blur_h(wl, int(vert_smooth_px)), 0.0, 1.0)
+                wr = torch.clamp(box_blur_h(wr, int(vert_smooth_px)), 0.0, 1.0)
+        with span("blur.box_w"):
+            blurred = box_blur_w(depth, n)
+        with span("blur.blend"):
+            left = wl * blurred + (1.0 - wl) * depth
+            right = wr * blurred + (1.0 - wr) * depth
+        return left, right
 
 
 def gaussian_blur(depth: torch.Tensor, sigma: float) -> torch.Tensor:

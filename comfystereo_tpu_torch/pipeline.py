@@ -27,6 +27,7 @@ from .device import true_divide
 from .ops import blur as blur_ops
 from .ops import depth as depth_ops
 from .ops import fills, pack, polylines, polylines_exact, warp
+from .utils.profiling import span
 
 
 def apply_stereo_divergence(image_u8: torch.Tensor, depth: torch.Tensor,
@@ -102,12 +103,14 @@ def apply_stereo_divergence(image_u8: torch.Tensor, depth: torch.Tensor,
 
 
 # The stages of stereo_pipeline, in order. They are separate so that a stage
-# can be timed alone on the inputs the pipeline gives it (chip_smoke.py).
+# can be timed alone on the inputs the pipeline gives it (chip_smoke.py), and
+# each records its span (`utils.profiling.span`), on the sharded path too.
 
 def _depth255(depth: torch.Tensor) -> torch.Tensor:
     # 0-1 depth is scaled to 0-255 for the blur (reference :1045-1046,
     # :1474-1476); the test takes the max over the whole chunk, on the device.
-    return torch.where(depth.max() <= 1.0, depth * 255.0, depth)
+    with span("pipeline.depth255"):
+        return torch.where(depth.max() <= 1.0, depth * 255.0, depth)
 
 
 def _blurred_eye_depths(depth255: torch.Tensor, cfg: StereoConfig):
@@ -122,9 +125,10 @@ def _blurred_eye_depths(depth255: torch.Tensor, cfg: StereoConfig):
 def _eye_source(image: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
     """The colour both eyes are made from: the image in the colour dtype for
     gpu_warp, uint8 values in float32 for the fills."""
-    if cfg.fill_technique == "gpu_warp":
-        return image.to(torch.bfloat16) if cfg.color_dtype == "bfloat16" else image
-    return torch.trunc(torch.clamp(image * 255.0, 0.0, 255.0))
+    with span("pipeline.eye_source"):
+        if cfg.fill_technique == "gpu_warp":
+            return image.to(torch.bfloat16) if cfg.color_dtype == "bfloat16" else image
+        return torch.trunc(torch.clamp(image * 255.0, 0.0, 255.0))
 
 
 def _eye(src: torch.Tensor, eye_d: torch.Tensor, div: float, sign: float,
@@ -133,22 +137,23 @@ def _eye(src: torch.Tensor, eye_d: torch.Tensor, div: float, sign: float,
     (colour, None) for the fills. An eye under 0.001% divergence is the
     source itself. depth_range: each frame's depth (min, max) where eye_d
     holds only some of its rows (`parallel/pipeline.py`)."""
-    warp_path = cfg.fill_technique == "gpu_warp"
-    if div < 0.001:
-        gap = (torch.zeros(eye_d.shape, dtype=torch.bool, device=eye_d.device)
-               if warp_path else None)
-        return src, gap
-    if warp_path:
-        w = src.shape[-2]
-        return warp.forward_warp(
-            src, eye_d, sign * ((div / 100.0) * w), -sign * ((cfg.separation / 100.0) * w),
-            cfg.stereo_offset_exponent, cfg.convergence_point,
-            cfg.gradient_threshold, cfg.max_stretch, depth_range=depth_range)
-    return apply_stereo_divergence(
-        src, eye_d, sign * div, -sign * cfg.separation,
-        cfg.stereo_offset_exponent, cfg.fill_technique,
-        cfg.convergence_point, cfg.polylines_samples, cfg.polylines_exact,
-        depth_range=depth_range), None
+    with span("pipeline.eye"):
+        warp_path = cfg.fill_technique == "gpu_warp"
+        if div < 0.001:
+            gap = (torch.zeros(eye_d.shape, dtype=torch.bool, device=eye_d.device)
+                   if warp_path else None)
+            return src, gap
+        if warp_path:
+            w = src.shape[-2]
+            return warp.forward_warp(
+                src, eye_d, sign * ((div / 100.0) * w), -sign * ((cfg.separation / 100.0) * w),
+                cfg.stereo_offset_exponent, cfg.convergence_point,
+                cfg.gradient_threshold, cfg.max_stretch, depth_range=depth_range)
+        return apply_stereo_divergence(
+            src, eye_d, sign * div, -sign * cfg.separation,
+            cfg.stereo_offset_exponent, cfg.fill_technique,
+            cfg.convergence_point, cfg.polylines_samples, cfg.polylines_exact,
+            depth_range=depth_range), None
 
 
 def _outputs(left, right, left_d: torch.Tensor, right_d: torch.Tensor,
@@ -156,21 +161,20 @@ def _outputs(left, right, left_d: torch.Tensor, right_d: torch.Tensor,
     """Pack the two eyes of `_eye` into every mode, with the mask and the
     depth outputs."""
     (left_eye, left_mask), (right_eye, right_mask) = left, right
-    if cfg.fill_technique == "gpu_warp":
-        mask = (left_mask | right_mask).float()
-        outs = tuple(torch.clamp(pack.pack_mode(left_eye, right_eye, m), 0.0, 1.0)
-                     for m in cfg.modes)
-    else:
-        outs_u8 = tuple(pack.pack_mode(left_eye, right_eye, m) for m in cfg.modes)
-        # Black-pixel mask on the first packed output (GenerateStereo.py:355-361).
-        mask = (outs_u8[0].sum(-1) == 0).float()
-        outs = tuple(true_divide(o, 255.0) for o in outs_u8)
-    return {
-        "stereo": outs,
-        "left_depth": torch.clamp(true_divide(left_d, 255.0), 0.0, 1.0),
-        "right_depth": torch.clamp(true_divide(right_d, 255.0), 0.0, 1.0),
-        "mask": mask,
-    }
+    warp_path = cfg.fill_technique == "gpu_warp"
+    with span("pipeline.pack"):
+        outs = tuple(torch.clamp(o, 0.0, 1.0) if warp_path else true_divide(o, 255.0)
+                     for o in (pack.pack_mode(left_eye, right_eye, m) for m in cfg.modes))
+    with span("pipeline.mask"):
+        # gpu_warp: the eyes' gap masks; the fills: black pixels of the first
+        # packed output (GenerateStereo.py:355-361), which are 0 after the
+        # division by 255 exactly where they were 0 before it.
+        mask = ((left_mask | right_mask) if warp_path else outs[0].sum(-1) == 0).float()
+    with span("pipeline.depth_outputs"):
+        left_depth = torch.clamp(true_divide(left_d, 255.0), 0.0, 1.0)
+        right_depth = torch.clamp(true_divide(right_d, 255.0), 0.0, 1.0)
+    return {"stereo": outs, "left_depth": left_depth, "right_depth": right_depth,
+            "mask": mask}
 
 
 def stereo_pipeline(image: torch.Tensor, depth: torch.Tensor,
@@ -194,11 +198,12 @@ def stereo_pipeline(image: torch.Tensor, depth: torch.Tensor,
                    without its channel axis
     """
     from .parallel.sharding import ShardedTensor
-    if isinstance(image, ShardedTensor) or isinstance(depth, ShardedTensor):
-        from .parallel.pipeline import sharded_pipeline
-        return sharded_pipeline(image, depth, cfg)
-    left_d, right_d = _blurred_eye_depths(_depth255(depth.float()), cfg)
-    left_div, right_div = cfg.eye_divergences()
-    src = _eye_source(image.float(), cfg)
-    return _outputs(_eye(src, left_d, left_div, +1.0, cfg),
-                    _eye(src, right_d, right_div, -1.0, cfg), left_d, right_d, cfg)
+    with span("pipeline.stereo_pipeline"):
+        if isinstance(image, ShardedTensor) or isinstance(depth, ShardedTensor):
+            from .parallel.pipeline import sharded_pipeline
+            return sharded_pipeline(image, depth, cfg)
+        left_d, right_d = _blurred_eye_depths(_depth255(depth.float()), cfg)
+        left_div, right_div = cfg.eye_divergences()
+        src = _eye_source(image.float(), cfg)
+        return _outputs(_eye(src, left_d, left_div, +1.0, cfg),
+                        _eye(src, right_d, right_div, -1.0, cfg), left_d, right_d, cfg)

@@ -27,6 +27,7 @@ from .. import native
 from ..config import StereoConfig
 from ..device import DeviceLike, resolve_device, true_divide
 from ..pipeline import stereo_pipeline
+from .profiling import span
 
 try:
     import cv2
@@ -85,18 +86,35 @@ def video_fps(video_path: str) -> float:
         cap.release()
 
 
+# Frames through `device_chunk`, and bytes of host inputs it moved to a CUDA
+# device (0 on the CPU), since the process started.
+FRAMES = 0
+UPLOAD_BYTES = 0
+
+
 def device_chunk(bgr_u8, dep_bgr_u8, cfg: StereoConfig,
                  device: DeviceLike = None) -> torch.Tensor:
     """[B, H, W, 3] BGR uint8 frames and BGR uint8 depth frames (numpy or
     tensors) -> the first packed mode as BGR uint8, on `device`."""
+    global FRAMES, UPLOAD_BYTES
     dev = resolve_device(device)
-    bgr = torch.as_tensor(bgr_u8).to(dev)
-    dep = torch.as_tensor(dep_bgr_u8).to(dev)
-    img = true_divide(bgr.flip(-1).float(), 255.0)
-    d = dep.float()
-    gray = true_divide(0.2989 * d[..., 2] + 0.5870 * d[..., 1] + 0.1140 * d[..., 0], 255.0)
-    sbs = stereo_pipeline(img, gray, cfg)["stereo"][0].float()
-    return torch.trunc(torch.clamp(sbs * 255.0, 0.0, 255.0)).to(torch.uint8).flip(-1)
+    with span("video.device_chunk"):
+        with span("video.upload"):
+            bgr = torch.as_tensor(bgr_u8)
+            dep = torch.as_tensor(dep_bgr_u8)
+            if dev.type == "cuda":
+                UPLOAD_BYTES += sum(t.nbytes for t in (bgr, dep) if t.device.type == "cpu")
+            bgr, dep = bgr.to(dev), dep.to(dev)
+        FRAMES += bgr.shape[0]
+        with span("video.to_float"):
+            img = true_divide(bgr.flip(-1).float(), 255.0)
+            d = dep.float()
+            gray = true_divide(0.2989 * d[..., 2] + 0.5870 * d[..., 1] + 0.1140 * d[..., 0],
+                               255.0)
+        sbs = stereo_pipeline(img, gray, cfg)["stereo"][0]
+        with span("video.to_u8"):
+            return torch.trunc(torch.clamp(sbs.float() * 255.0, 0.0, 255.0)).to(
+                torch.uint8).flip(-1)
 
 
 def convert_video(video_path: str, depth_video_path: str, out_path: str,

@@ -1040,3 +1040,58 @@ def test_scheduler_steps_card_bit_equal_to_cpu(dev):
         card = s.pndm_scan_step(pndm, i, ts[i], card[1], card[2], eps.to(dev), card[0])
         for a, b in zip(card, cpu):
             assert torch.equal(a.cpu(), b), i
+
+
+def _chunk_u8(b=2, h=H, w=W):
+    rng = np.random.default_rng(5)
+    bgr = rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)
+    dep = np.repeat(fixtures.create_depth_map(h, w)[None, ..., None], b, 0).repeat(3, -1)
+    return bgr, np.ascontiguousarray(dep.astype(np.uint8))
+
+
+def test_device_chunk_counts_its_upload(dev):
+    """`UPLOAD_BYTES` grows by both inputs' bytes, 2 * B * H * W * 3, per chunk."""
+    from comfystereo_tpu_torch.utils import video
+    bgr, dep = _chunk_u8()
+    cfg = StereoConfig(batch_size=2)
+    frames, nbytes = video.FRAMES, video.UPLOAD_BYTES
+    for k in (1, 2):
+        video.device_chunk(bgr, dep, cfg, device=dev)
+        assert video.FRAMES == frames + 2 * k
+        assert video.UPLOAD_BYTES == nbytes + k * 2 * 2 * H * W * 3
+
+
+@pytest.mark.parametrize("fill,homes", [
+    ("gpu_warp", {"edge_distances_kernel": ("blur.edge_weights", 1),
+                  "warp_rows_kernel": ("pipeline.eye", 2)}),
+    ("polylines_sharp", {"edge_distances_kernel": ("blur.edge_weights", 1),
+                         "polylines_exact_kernel": ("pipeline.eye", 2)})])
+def test_traced_chunk_puts_named_kernels_under_their_spans(dev, fill, homes, tmp_path):
+    """On a traced chunk each named kernel's launch call (paired by the
+    trace's correlation id) lies inside its span, as often as the chunk
+    launches it."""
+    import json
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    from comfystereo_tpu_torch.utils import video
+    bgr, dep = _chunk_u8()
+    cfg = StereoConfig(fill_technique=fill, batch_size=2)
+    video.device_chunk(bgr, dep, cfg, device=dev)  # the kernels built and loaded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        video.device_chunk(bgr, dep, cfg, device=dev)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = [e for e in json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    launch = {e["args"]["correlation"]: e for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver") and "Launch" in e["name"]}
+    spans = [e for e in events if e.get("cat") == "user_annotation"]
+    for kname, (home, count) in homes.items():
+        found = [e for e in events if e.get("cat") == "kernel"
+                 and re.search(rf"\b{kname}\b", e["name"])]
+        assert len(found) == count, kname
+        for k in found:
+            call = launch[k["args"]["correlation"]]
+            assert any(s["name"] == home and s["ts"] <= call["ts"] <= s["ts"] + s["dur"]
+                       for s in spans), kname

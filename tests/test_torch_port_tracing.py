@@ -1,0 +1,156 @@
+"""The port's spans and counters on the CPU: `utils.profiling.span` is a
+shared no-op without a profiler; under one, `device_chunk` records the
+chunk path's span tree, every op lies inside a span, and the outputs are
+those of an untraced chunk; `utils.video` counts frames and the bytes it
+uploads to a card (none here)."""
+import contextlib
+import dataclasses
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from comfystereo_tpu_torch.config import StereoConfig
+from comfystereo_tpu_torch.utils import profiling, video
+
+B, H, W = 2, 16, 32
+# The benchmark's two configurations, built as its chunk driver builds them.
+CONFIGS = ["gpu_warp_default", "polylines_sharp"]
+CONFIG_DIR = Path(__file__).resolve().parent.parent / "stereo_bench" / "configs"
+# Spans that hold other spans; an op directly inside one is a view or a cast
+# to the dtype the tensor already has.
+CONTAINERS = {"video.device_chunk", "pipeline.stereo_pipeline", "blur.directional"}
+NO_COPY = {"aten::to", "aten::reshape", "aten::view"}
+
+
+def _leaves(*names):
+    return tuple((n, ()) for n in names)
+
+
+CHUNK_TREE = ("video.device_chunk", (
+    *_leaves("video.upload", "video.to_float"),
+    ("pipeline.stereo_pipeline", (
+        *_leaves("pipeline.depth255"),
+        ("blur.directional", _leaves("blur.edge_weights", "blur.box_h", "blur.box_w",
+                                     "blur.blend")),
+        *_leaves("pipeline.eye_source", "pipeline.eye", "pipeline.eye", "pipeline.pack",
+                 "pipeline.mask", "pipeline.depth_outputs"))),
+    *_leaves("video.to_u8")))
+
+
+def _config(name: str) -> StereoConfig:
+    settings = json.loads((CONFIG_DIR / f"{name}.json").read_text())["settings"]
+    kw = {k: v for k, v in settings.items() if k not in ("fill_technique", "modes")}
+    cfg = StereoConfig.from_ui(settings["fill_technique"], modes=(settings["modes"],), **kw)
+    return dataclasses.replace(cfg, batch_size=B)
+
+
+def _chunk(seed: int = 0):
+    rng = np.random.default_rng(seed)
+    bgr = rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8)
+    dep = np.repeat(rng.integers(0, 256, (B, H, W, 1), dtype=np.uint8), 3, axis=-1)
+    return bgr, dep
+
+
+def _traced(fn, tmp_path):
+    """fn's result and the complete events of a CPU profile around it."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return out, [e for e in events if e.get("ph") == "X"]
+
+
+def _spans(events):
+    return sorted((e for e in events if e.get("cat") == "user_annotation"),
+                  key=lambda e: (e["ts"], -e["dur"]))
+
+
+def _inside(e, s) -> bool:
+    return s["ts"] <= e["ts"] and e["ts"] + e["dur"] <= s["ts"] + s["dur"]
+
+
+def _tree(events):
+    """The spans as nested (name, children) tuples, by containment."""
+    top = []
+    stack = [({"ts": -1e30, "dur": float("inf")}, top)]
+    for s in _spans(events):
+        while not _inside(s, stack[-1][0]):
+            stack.pop()
+        kids = []
+        stack[-1][1].append((s["name"], kids))
+        stack.append((s, kids))
+
+    def freeze(nodes):
+        return tuple((name, freeze(kids)) for name, kids in nodes)
+
+    return freeze(top)
+
+
+def test_span_is_the_shared_no_op_without_a_profiler(tmp_path):
+    assert not torch._C._autograd._profiler_enabled()
+    off = profiling.span("a")
+    assert off is profiling.span("b")
+    assert isinstance(off, contextlib.nullcontext)
+
+    def run():
+        with off:  # taken while no profiler ran: records nothing
+            torch.ones(2).add_(1)
+        with profiling.span("recorded"):
+            torch.ones(2).add_(1)
+
+    _, events = _traced(run, tmp_path)
+    assert [s["name"] for s in _spans(events)] == ["recorded"]
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_chunk_records_the_span_tree(name, tmp_path):
+    cfg = _config(name)
+    bgr, dep = _chunk()
+
+    def two_chunks():
+        return [video.device_chunk(bgr, dep, cfg, device="cpu") for _ in range(2)]
+
+    _, events = _traced(two_chunks, tmp_path)
+    assert _tree(events) == (CHUNK_TREE, CHUNK_TREE)
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_every_op_of_the_chunk_lies_in_a_span(name, tmp_path):
+    """Every aten op lies inside a program span, and the ops directly inside
+    a span that holds others compute nothing (views and no-op casts)."""
+    cfg = _config(name)
+    bgr, dep = _chunk(1)
+    _, events = _traced(lambda: video.device_chunk(bgr, dep, cfg, device="cpu"), tmp_path)
+    spans = _spans(events)
+    ops = [e for e in events if e.get("cat") == "cpu_op" and e["name"].startswith("aten::")]
+    assert ops
+    for op in ops:
+        holders = [s for s in spans if _inside(op, s)]
+        assert holders, op["name"]
+        innermost = max(holders, key=lambda s: s["ts"])["name"]
+        assert innermost not in CONTAINERS or op["name"] in NO_COPY, (innermost, op["name"])
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_outputs_are_the_same_traced_and_untraced(name, tmp_path):
+    cfg = _config(name)
+    bgr, dep = _chunk(2)
+    plain = video.device_chunk(bgr, dep, cfg, device="cpu")
+    traced, _ = _traced(lambda: video.device_chunk(bgr, dep, cfg, device="cpu"), tmp_path)
+    assert traced.dtype == torch.uint8 and torch.equal(traced, plain)
+
+
+def test_counters_count_frames_and_no_upload_on_the_cpu():
+    cfg = _config("gpu_warp_default")
+    bgr, dep = _chunk(3)
+    frames, nbytes = video.FRAMES, video.UPLOAD_BYTES
+    video.device_chunk(bgr, dep, cfg, device="cpu")
+    assert video.FRAMES == frames + B
+    video.device_chunk(torch.from_numpy(bgr), torch.from_numpy(dep), cfg, device="cpu")
+    assert video.FRAMES == frames + 2 * B
+    assert video.UPLOAD_BYTES == nbytes

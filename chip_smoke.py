@@ -53,7 +53,8 @@ any failure ends the run with a non-zero exit code:
    before and read just after: StereoImageNode().generate on 12 frames of
    1920x1080 with the default config (gpu_warp, depth blur, left-right,
    batch_size=12: warp 2, distance 1), then device_chunk on the same frames
-   as uint8 BGR; the node with "Fill - Polylines Sharp" (polylines 2,
+   as uint8 BGR (its result page-locked on the host, within 1 LSB of the
+   node's); the node with "Fill - Polylines Sharp" (polylines 2,
    distance 1, warp 0); stereo_pipeline once for each other fill at 1080p
    B=12 (gather launches printed; every gather fill must launch it); with
    polylines_exact=False, stereo_pipeline for polylines_sharp,
@@ -990,15 +991,17 @@ def phase_main_path(dev, n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
     bgr = torch.from_numpy(np.ascontiguousarray(imgs[..., ::-1]))
     dep_bgr = torch.from_numpy(np.repeat(deps[..., None], 3, axis=-1))
     out = device_chunk(bgr, dep_bgr, cfg, device=dev)
-    sync()
     if out.dtype != torch.uint8 or tuple(out.shape) != (n, h, 2 * w, 3):
         raise AssertionError(f"device_chunk gave {out.dtype} {tuple(out.shape)}")
+    if out.device.type != "cpu" or not out.is_pinned():
+        raise AssertionError(f"device_chunk's result on {out.device}, pinned "
+                             f"{out.is_pinned()}: not page-locked on the host")
     node_u8 = torch.trunc(stereo * 255.0).flip(-1)
-    within = float(((out.cpu().float() - node_u8).abs() <= 1).float().mean())
+    within = float(((out.float() - node_u8).abs() <= 1).float().mean())
     if within < 0.999:
         raise AssertionError(f"device_chunk vs node: only {within:.5f} within 1 LSB")
-    log(f"  device_chunk uint8 BGR {tuple(out.shape)}, {within:.6f} of values "
-        "within 1 LSB of the node")
+    log(f"  device_chunk uint8 BGR {tuple(out.shape)}, on the host, pinned "
+        f"{out.is_pinned()}, {within:.6f} of values within 1 LSB of the node")
 
     reset_launches()
     t0 = time.perf_counter()

@@ -19,9 +19,11 @@ an x86 host even with no profiler running. An operator records the spans beside 
 chunk path's spans, from the entry down:
 
 - `video.device_chunk` (`utils/video.py:device_chunk`), and in it
-  `video.upload` (the host arrays to the device), `video.to_float`
-  (BGR -> RGB / 255 and the depth's luma) and `video.to_u8`
-  (trunc(clamp(x * 255)) as uint8 BGR);
+  `video.upload` (the host arrays to the device, through page-locked
+  staging on a card), `video.to_float` (BGR -> RGB / 255 and the depth's
+  luma), `video.to_u8` (trunc(clamp(x * 255)) as uint8 BGR) and
+  `video.download` (the result into page-locked host memory and the wait
+  for it; empty on the CPU);
 - `pipeline.stereo_pipeline` (the pass), and in it `pipeline.depth255`,
   `pipeline.eye_source`, `pipeline.eye` (one eye: the warp or the fill),
   `pipeline.pack` (`pack_mode` and its clamp or divide), `pipeline.mask`
@@ -30,8 +32,10 @@ chunk path's spans, from the entry down:
   `blur.edge_weights`, `blur.box_h` (the weights' vertical smooths and
   clamps), `blur.box_w` and `blur.blend`.
 
-`utils/video.py` counts `FRAMES` through `device_chunk` and the
-`UPLOAD_BYTES` it moves to a CUDA device.
+`utils/video.py` counts `FRAMES` through `device_chunk`, the
+`UPLOAD_BYTES` it moves to a CUDA device, the `DOWNLOAD_BYTES` it brings
+back from one, and the `STAGED_BYTES` of either that go through
+page-locked memory.
 """
 from __future__ import annotations
 

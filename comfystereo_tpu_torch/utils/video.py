@@ -2,10 +2,14 @@
 
 `device_chunk` is the uint8 -> uint8 chunk program: BGR -> RGB / 255, the
 Rec.601 luma of the BGR depth frame, the pipeline, then trunc(clip(x * 255))
-and RGB -> BGR, all on the device. `convert_video` streams a source video
-and its depth video through it in `batch_size` chunks with three threads:
-a producer decodes, the main thread enqueues device work, and a consumer
-copies results back and feeds the encoder. Both queues hold at most 2 chunks.
+and RGB -> BGR, all on the device. On a CUDA device it moves both ways
+through page-locked host memory: the host inputs are copied into it a group
+of frames at a time, each group going up while the next is copied, and the
+result comes back into a page-locked tensor of its own, which it returns
+once it is on the host. `convert_video` streams a source video and its
+depth video through it in `batch_size` chunks with three threads: a
+producer decodes, the main thread runs the chunks, and a consumer feeds the
+results to the encoder. Both queues hold at most 2 chunks.
 
 Frames travel as uint8 both ways (`iter_frame_chunks(raw=True)`). By
 default `iter_frame_chunks` yields float32 RGB in 0-1, or with `gray=True`
@@ -86,25 +90,71 @@ def video_fps(video_path: str) -> float:
         cap.release()
 
 
-# Frames through `device_chunk`, and bytes of host inputs it moved to a CUDA
-# device (0 on the CPU), since the process started.
+# Frames through `device_chunk`, bytes of host inputs it moved to a CUDA
+# device, bytes of results it brought back from one, and bytes of either
+# that went through page-locked staging, since the process started; the
+# last three stay 0 on the CPU.
 FRAMES = 0
 UPLOAD_BYTES = 0
+DOWNLOAD_BYTES = 0
+STAGED_BYTES = 0
+
+# The size of one staged group of frames: the host copy of a group into
+# page-locked memory overlaps the DMA of the group before it.
+_GROUP_BYTES = 24 << 20
+
+
+def _upload(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """`x` on `dev`. A host tensor bound for a CUDA device is staged in
+    page-locked memory a group of frames at a time, each group going up
+    without blocking the host; its copy is done before the stream's later
+    work."""
+    global UPLOAD_BYTES, STAGED_BYTES
+    if dev.type != "cuda" or x.device.type != "cpu":
+        return x.to(dev)
+    out = torch.empty(x.shape, dtype=x.dtype, device=dev)
+    staged = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    n = x.shape[0]
+    groups = max(1, -(-x.nbytes // _GROUP_BYTES))
+    step = max(1, -(-n // groups))
+    for a in range(0, n, step):
+        staged[a:a + step].copy_(x[a:a + step])
+        out[a:a + step].copy_(staged[a:a + step], non_blocking=True)
+    UPLOAD_BYTES += x.nbytes
+    STAGED_BYTES += x.nbytes
+    return out
+
+
+def _download(x: torch.Tensor) -> torch.Tensor:
+    """`x` on the host: a CUDA tensor in a page-locked host tensor of its
+    own, once the copy is done. The blocking copy is a DMA and a wait for
+    the stream, as a non-blocking copy and a stream wait would be, but it
+    leaves the block unmarked by the stream: the caching host allocator can
+    hand it out again as soon as the caller frees it, not only once the
+    work queued by then is done."""
+    global DOWNLOAD_BYTES, STAGED_BYTES
+    if x.device.type != "cuda":
+        return x
+    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    out.copy_(x)
+    DOWNLOAD_BYTES += out.nbytes
+    STAGED_BYTES += out.nbytes
+    return out
 
 
 def device_chunk(bgr_u8, dep_bgr_u8, cfg: StereoConfig,
                  device: DeviceLike = None) -> torch.Tensor:
     """[B, H, W, 3] BGR uint8 frames and BGR uint8 depth frames (numpy or
-    tensors) -> the first packed mode as BGR uint8, on `device`."""
-    global FRAMES, UPLOAD_BYTES
+    tensors) -> the first packed mode as BGR uint8, on the host. The pass
+    runs on `device`; on a CUDA device the result is in page-locked memory
+    that no later call reuses while the caller holds it, and the call
+    returns once it has arrived."""
+    global FRAMES
     dev = resolve_device(device)
     with span("video.device_chunk"):
         with span("video.upload"):
-            bgr = torch.as_tensor(bgr_u8)
-            dep = torch.as_tensor(dep_bgr_u8)
-            if dev.type == "cuda":
-                UPLOAD_BYTES += sum(t.nbytes for t in (bgr, dep) if t.device.type == "cpu")
-            bgr, dep = bgr.to(dev), dep.to(dev)
+            bgr = _upload(torch.as_tensor(bgr_u8), dev)
+            dep = _upload(torch.as_tensor(dep_bgr_u8), dev)
         FRAMES += bgr.shape[0]
         with span("video.to_float"):
             img = true_divide(bgr.flip(-1).float(), 255.0)
@@ -113,8 +163,10 @@ def device_chunk(bgr_u8, dep_bgr_u8, cfg: StereoConfig,
                                255.0)
         sbs = stereo_pipeline(img, gray, cfg)["stereo"][0]
         with span("video.to_u8"):
-            return torch.trunc(torch.clamp(sbs.float() * 255.0, 0.0, 255.0)).to(
+            out = torch.trunc(torch.clamp(sbs.float() * 255.0, 0.0, 255.0)).to(
                 torch.uint8).flip(-1)
+        with span("video.download"):
+            return _download(out)
 
 
 def convert_video(video_path: str, depth_video_path: str, out_path: str,
@@ -123,6 +175,9 @@ def convert_video(video_path: str, depth_video_path: str, out_path: str,
     """Depth video + source video -> packed stereo video. Returns the frame
     count. A short last chunk is zero-padded to cfg.batch_size, so every
     chunk has one shape. `.avi` output is lossless FFV1, anything else mp4v.
+    The main thread runs each chunk through `device_chunk`, whose result is
+    already on the host, while the producer decodes the next chunks and the
+    consumer encodes the last ones.
     """
     dev = resolve_device(device)
     _require_cv2()
@@ -154,8 +209,8 @@ def convert_video(video_path: str, depth_video_path: str, out_path: str,
                 entry = write_q.get()
                 if entry is None:
                     return
-                out_dev, n = entry
-                arr = out_dev.cpu().numpy()  # d2h; blocks this thread only
+                out, n = entry
+                arr = out.numpy()  # device_chunk's result is on the host
                 for f in arr[:n]:
                     if writer_box[0] is None:
                         h, w = f.shape[:2]

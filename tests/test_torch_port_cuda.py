@@ -1050,15 +1050,94 @@ def _chunk_u8(b=2, h=H, w=W):
 
 
 def test_device_chunk_counts_its_upload(dev):
-    """`UPLOAD_BYTES` grows by both inputs' bytes, 2 * B * H * W * 3, per chunk."""
+    """Per chunk, `UPLOAD_BYTES` grows by both inputs' bytes, 2 * B * H * W * 3,
+    `DOWNLOAD_BYTES` by the packed pair's, B * H * 2W * 3, and `STAGED_BYTES`
+    by both."""
     from comfystereo_tpu_torch.utils import video
     bgr, dep = _chunk_u8()
     cfg = StereoConfig(batch_size=2)
-    frames, nbytes = video.FRAMES, video.UPLOAD_BYTES
+    frames, up = video.FRAMES, video.UPLOAD_BYTES
+    down, staged = video.DOWNLOAD_BYTES, video.STAGED_BYTES
     for k in (1, 2):
         video.device_chunk(bgr, dep, cfg, device=dev)
         assert video.FRAMES == frames + 2 * k
-        assert video.UPLOAD_BYTES == nbytes + k * 2 * 2 * H * W * 3
+        assert video.UPLOAD_BYTES == up + k * 2 * 2 * H * W * 3
+        assert video.DOWNLOAD_BYTES == down + k * 2 * H * 2 * W * 3
+        assert video.STAGED_BYTES == staged + k * 4 * 2 * H * W * 3
+
+
+def _chunk_on_card(bgr, dep, cfg, dev):
+    """The chunk program written out on the card, brought over by `.cpu()`."""
+    from comfystereo_tpu_torch.device import true_divide
+    img = true_divide(torch.from_numpy(bgr).to(dev).flip(-1).float(), 255.0)
+    d = torch.from_numpy(dep).to(dev).float()
+    gray = true_divide(0.2989 * d[..., 2] + 0.5870 * d[..., 1] + 0.1140 * d[..., 0], 255.0)
+    sbs = stereo_pipeline(img, gray, cfg)["stereo"][0]
+    return torch.trunc(torch.clamp(sbs.float() * 255.0, 0.0, 255.0)).to(
+        torch.uint8).flip(-1).cpu()
+
+
+@pytest.mark.parametrize("fill", ["gpu_warp", "polylines_sharp"])
+def test_device_chunk_returns_its_result_pinned_on_the_host(dev, fill):
+    """The result is a page-locked host tensor, bit-equal to the chunk
+    program computed on the card and brought over by `.cpu()`; for numpy
+    inputs, host tensors and inputs already on the card alike."""
+    from comfystereo_tpu_torch.utils import video
+    bgr, dep = _chunk_u8()
+    cfg = StereoConfig(fill_technique=fill, batch_size=2)
+    want = _chunk_on_card(bgr, dep, cfg, dev)
+    for args in ((bgr, dep), (torch.from_numpy(bgr), torch.from_numpy(dep)),
+                 (torch.from_numpy(bgr).to(dev), torch.from_numpy(dep).to(dev))):
+        out = video.device_chunk(*args, cfg, device=dev)
+        assert out.device.type == "cpu" and out.is_pinned()
+        assert out.dtype == torch.uint8 and torch.equal(out, want)
+
+
+def test_device_chunk_stages_no_input_already_on_the_card(dev):
+    """Inputs on the card go up neither counted nor staged; the result still
+    comes down through page-locked memory."""
+    from comfystereo_tpu_torch.utils import video
+    bgr, dep = _chunk_u8()
+    cfg = StereoConfig(batch_size=2)
+    args = (torch.from_numpy(bgr).to(dev), torch.from_numpy(dep).to(dev))
+    up, down, staged = video.UPLOAD_BYTES, video.DOWNLOAD_BYTES, video.STAGED_BYTES
+    video.device_chunk(*args, cfg, device=dev)
+    assert video.UPLOAD_BYTES == up
+    assert video.DOWNLOAD_BYTES == down + 2 * H * 2 * W * 3
+    assert video.STAGED_BYTES == staged + 2 * H * 2 * W * 3
+
+
+@pytest.mark.parametrize("frames", [1, 5, 12])
+def test_upload_stages_groups_of_frames_exactly(dev, frames):
+    """1080p uint8 frames go up in groups (12 frames: three of four), a
+    non-contiguous view too, and arrive as they were."""
+    from comfystereo_tpu_torch.utils import video
+    rng = np.random.default_rng(frames)
+    x = torch.from_numpy(rng.integers(0, 256, (frames, 1080, 1920, 3), dtype=np.uint8))
+    for src in (x, x.permute(0, 2, 1, 3)):
+        up, staged = video.UPLOAD_BYTES, video.STAGED_BYTES
+        got = video._upload(src, dev)
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), src)
+        assert video.UPLOAD_BYTES == up + src.nbytes
+        assert video.STAGED_BYTES == staged + src.nbytes
+
+
+def test_device_chunk_results_held_at_once_stay_their_own(dev):
+    """Four results of four different chunks, all held, each still equals
+    its own chunk's output once the last is made: no buffer of a result is
+    reused while the caller holds it."""
+    from comfystereo_tpu_torch.utils import video
+    cfg = StereoConfig(batch_size=8)
+    rng = np.random.default_rng(11)
+    chunks = []
+    for _ in range(4):
+        bgr = rng.integers(0, 256, (8, H, W, 3), dtype=np.uint8)
+        dep = np.repeat(rng.integers(0, 256, (8, H, W, 1), dtype=np.uint8), 3, axis=-1)
+        chunks.append((bgr, dep))
+    held = [video.device_chunk(bgr, dep, cfg, device=dev) for bgr, dep in chunks]
+    assert len({t.data_ptr() for t in held}) == 4
+    for out, (bgr, dep) in zip(held, chunks):
+        assert torch.equal(out, _chunk_on_card(bgr, dep, cfg, dev))
 
 
 @pytest.mark.parametrize("fill,homes", [
@@ -1069,7 +1148,8 @@ def test_device_chunk_counts_its_upload(dev):
 def test_traced_chunk_puts_named_kernels_under_their_spans(dev, fill, homes, tmp_path):
     """On a traced chunk each named kernel's launch call (paired by the
     trace's correlation id) lies inside its span, as often as the chunk
-    launches it."""
+    launches it; the chunk makes as many launch calls as kernels, and no
+    copy between host and card is pageable."""
     import json
     import re
     from torch.profiler import ProfilerActivity, profile
@@ -1095,3 +1175,7 @@ def test_traced_chunk_puts_named_kernels_under_their_spans(dev, fill, homes, tmp
             call = launch[k["args"]["correlation"]]
             assert any(s["name"] == home and s["ts"] <= call["ts"] <= s["ts"] + s["dur"]
                        for s in spans), kname
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert kernels and len(launch) == len(kernels)
+    copies = [e["name"] for e in events if e.get("cat") == "gpu_memcpy"]
+    assert copies and not [c for c in copies if "Pageable" in c], copies

@@ -2,7 +2,8 @@
 shared no-op without a profiler; under one, `device_chunk` records the
 chunk path's span tree, every op lies inside a span, and the outputs are
 those of an untraced chunk; `utils.video` counts frames and the bytes it
-uploads to a card (none here)."""
+moves to and from a card (none here), and on the CPU returns what the chunk
+program computes, with no staging."""
 import contextlib
 import dataclasses
 import json
@@ -14,6 +15,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from comfystereo_tpu_torch.config import StereoConfig
+from comfystereo_tpu_torch.device import true_divide
+from comfystereo_tpu_torch.pipeline import stereo_pipeline
 from comfystereo_tpu_torch.utils import profiling, video
 
 B, H, W = 2, 16, 32
@@ -38,7 +41,7 @@ CHUNK_TREE = ("video.device_chunk", (
                                      "blur.blend")),
         *_leaves("pipeline.eye_source", "pipeline.eye", "pipeline.eye", "pipeline.pack",
                  "pipeline.mask", "pipeline.depth_outputs"))),
-    *_leaves("video.to_u8")))
+    *_leaves("video.to_u8", "video.download")))
 
 
 def _config(name: str) -> StereoConfig:
@@ -154,3 +157,30 @@ def test_counters_count_frames_and_no_upload_on_the_cpu():
     video.device_chunk(torch.from_numpy(bgr), torch.from_numpy(dep), cfg, device="cpu")
     assert video.FRAMES == frames + 2 * B
     assert video.UPLOAD_BYTES == nbytes
+
+
+def _chunk_program(bgr, dep, cfg):
+    """The chunk program written out: BGR -> RGB / 255, the depth's luma,
+    the pass, trunc(clamp(x * 255)) as uint8 BGR."""
+    img = true_divide(torch.from_numpy(bgr).flip(-1).float(), 255.0)
+    d = torch.from_numpy(dep).float()
+    gray = true_divide(0.2989 * d[..., 2] + 0.5870 * d[..., 1] + 0.1140 * d[..., 0], 255.0)
+    sbs = stereo_pipeline(img, gray, cfg)["stereo"][0]
+    return torch.trunc(torch.clamp(sbs.float() * 255.0, 0.0, 255.0)).to(torch.uint8).flip(-1)
+
+
+@pytest.mark.parametrize("as_tensor", [False, True], ids=["numpy", "tensor"])
+@pytest.mark.parametrize("name", CONFIGS)
+def test_cpu_chunk_is_the_chunk_program_with_no_staging(name, as_tensor):
+    """On the CPU the result is the chunk program's, bit for bit, in memory
+    that is not page-locked, and only `FRAMES` moves."""
+    cfg = _config(name)
+    bgr, dep = _chunk(4)
+    args = (torch.from_numpy(bgr), torch.from_numpy(dep)) if as_tensor else (bgr, dep)
+    before = (video.UPLOAD_BYTES, video.DOWNLOAD_BYTES, video.STAGED_BYTES)
+    frames = video.FRAMES
+    out = video.device_chunk(*args, cfg, device="cpu")
+    assert out.device.type == "cpu" and out.dtype == torch.uint8 and not out.is_pinned()
+    assert torch.equal(out, _chunk_program(bgr, dep, cfg))
+    assert video.FRAMES == frames + B
+    assert (video.UPLOAD_BYTES, video.DOWNLOAD_BYTES, video.STAGED_BYTES) == before

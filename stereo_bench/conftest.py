@@ -1,6 +1,7 @@
 """Fixtures of the benchmark's own tests: a copy of the benchmark's folder
 and of BENCHMARK.json whose traffic mixes are cut to a tiny size, so that a
-cell runs end to end on the CPU through the program's plain versions."""
+cell runs end to end on the CPU through the program's plain versions. Each
+driver gives the tiny sizes of the mixes that drive it, in its `TINY`."""
 from __future__ import annotations
 
 import json
@@ -9,24 +10,29 @@ from pathlib import Path
 
 import pytest
 
+from stereo_bench import run
+
 HERE = Path(__file__).resolve().parent
 BENCH = json.loads((HERE.parent / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
-TINY = {"video_chunk": dict(height=24, width=48, frames_per_call=3, distinct=6, check_among=4,
-                            trace_calls=3)}
 
 
-def tiny_copy(dst: Path) -> Path:
-    """dst/stereo_bench: the benchmark's folder with tiny traffic, beside a
-    copy of BENCHMARK.json. Returns the folder."""
+def tiny_copy(dst: Path, src: Path = HERE) -> Path:
+    """dst/stereo_bench: the benchmark's folder `src` with each traffic mix
+    cut to the `TINY` sizes of the driver it names, beside a copy of the
+    BENCHMARK.json next to `src`. Returns the folder."""
     root = dst / "stereo_bench"
-    shutil.copytree(HERE, root, ignore=shutil.ignore_patterns("__pycache__", "test_*.py",
-                                                              "conftest.py"))
-    for path in (root / "traffic").glob("*.json"):
+    shutil.copytree(src, root, ignore=shutil.ignore_patterns("__pycache__", "test_*.py",
+                                                             "conftest.py"))
+    for path in sorted((root / "traffic").glob("*.json")):
         t = json.loads(path.read_text())
-        t.update(TINY[t["entry"]])
+        driver = run._load(root / "drivers" / f"{t['entry']}.py", f"tiny_driver_{t['entry']}")
+        if not isinstance(getattr(driver, "TINY", None), dict):
+            raise ValueError(f"driver {t['entry']!r} (drivers/{t['entry']}.py), which "
+                             f"traffic/{path.name} names, has no TINY sizes")
+        t.update(driver.TINY)
         path.write_text(json.dumps(t))
-    (dst / "BENCHMARK.json").write_text(json.dumps(BENCH))
+    shutil.copy(src.parent / "BENCHMARK.json", dst / "BENCHMARK.json")
     return root
 
 

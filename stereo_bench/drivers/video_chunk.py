@@ -1,12 +1,14 @@
 """The chunk program that `convert_video` runs, without the codec:
 `comfystereo_tpu_torch.utils.video.device_chunk` on `frames_per_call`
 frames of BGR uint8 and their BGR uint8 grey depth, as pageable numpy
-arrays, submitted on the caller's thread; its result, still on the
-device, is brought to the host by `collect` (`.cpu().numpy()`), which the
-harness runs on a second thread behind a queue of the mix's `in_flight`
-places, as `convert_video`'s encoder thread does behind its `write_q`.
-Compared: the share of the output's uint8 values that differ from the
-reference's, and the largest difference in steps of one."""
+arrays, submitted on the caller's thread. `device_chunk` returns the
+packed pair on the host, in page-locked memory, once its download has
+arrived; `collect` takes it as a numpy array (`.cpu().numpy()`, which
+copies nothing for a host tensor), and the harness runs it on a second
+thread behind a queue of the mix's `in_flight` places, as
+`convert_video`'s encoder thread does behind its `write_q`. Compared: the
+share of the output's uint8 values that differ from the reference's, and
+the largest difference in steps of one."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,6 +19,9 @@ import torch
 
 from stereo_bench import scenes
 from stereo_bench.reference import plain
+
+# The mix's sizes in the harness's own tests on the CPU.
+TINY = dict(height=24, width=48, frames_per_call=3, distinct=6, check_among=4, trace_calls=3)
 
 
 def inputs(traffic: Dict, seed: int) -> List:
@@ -38,15 +43,16 @@ def _config(settings: Dict, **extra):
 
 
 def program(settings: Dict, device) -> Callable:
-    """The timed call's first half: the chunk through `device_chunk`, its
-    packed pair left on the device."""
+    """The timed call's first half: the chunk through `device_chunk`, which
+    returns its packed pair on the host."""
     from comfystereo_tpu_torch.utils.video import device_chunk
     cfg = _config(settings)
     return lambda inp: device_chunk(inp[0], inp[1], cfg, device=device)
 
 
 def collect(out: torch.Tensor) -> np.ndarray:
-    """The timed call's second half: the packed pair on the host."""
+    """The timed call's second half: the packed pair, already on the host,
+    as a numpy array; no copy."""
     return out.cpu().numpy()
 
 

@@ -82,7 +82,7 @@ class Context:
     """What a metric reader reads."""
     traffic: Dict
     settings: Dict
-    fill: str
+    fill: Optional[str]  # None for an entry whose configuration names no fill
     setup_s: float
     window: Window
     trace: object = None
@@ -121,6 +121,15 @@ def load_cell(bench: Dict, workload: str, trace: bool, root: Path = ROOT) -> Cel
                 driver=_load(root / "drivers" / f"{traffic['entry']}.py",
                              f"stereo_bench_driver_{traffic['entry']}"),
                 limits=_json(root / "limits" / f"{workload}.json"), metrics=metrics)
+
+
+def fill_of(settings: Dict) -> Optional[str]:
+    """The fill that the configuration's `fill_technique` names, by the
+    reference's name for it; None where the configuration names none."""
+    if "fill_technique" not in settings:
+        return None
+    from stereo_bench.reference.plain import UI_FILLS
+    return UI_FILLS[settings["fill_technique"]]
 
 
 def sample_calls(seed: int, traffic: Dict, limits: Dict) -> List[int]:
@@ -295,8 +304,7 @@ def main(argv=None, bench_path: Optional[Path] = None, root: Path = ROOT,
     kind = torch.cuda.get_device_name(0) if on_card else "cpu"
 
     settings = cell.config["settings"]
-    from stereo_bench.reference.plain import UI_FILLS
-    fill = UI_FILLS[settings["fill_technique"]]
+    fill = fill_of(settings)
     parts = {"start": time.perf_counter() - t0}
     inputs = cell.driver.inputs(cell.traffic, args.seed)
     parts["inputs"] = time.perf_counter() - t0

@@ -17,8 +17,15 @@ SETTINGS = json.loads((HERE / "configs" / "gpu_warp_default.json").read_text())[
 VIDEO = dict(entry="video_chunk", height=10, width=20, frames_per_call=2)
 
 
-def ev(name, cat, ts, dur):
-    return {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur}
+def ev(name, cat, ts, dur, corr=None, tid=None):
+    """A complete event; a kernel or a launch call takes the correlation id
+    `corr`, a host event the thread `tid`."""
+    e = {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur}
+    if corr is not None:
+        e["args"] = {"correlation": corr}
+    if tid is not None:
+        e.update(pid=1, tid=tid)
+    return e
 
 
 def synthetic():
@@ -26,18 +33,24 @@ def synthetic():
     each call a 100 us copy in, a warp kernel of 200 us, a distance kernel
     of 50 us and a 100 us copy out; one memset of 10 us; an elementwise
     kernel of 40 us that overlaps the warp by 20 us. Host: a cpu_op over
-    the idle part of each call."""
+    the idle part of each call, and each kernel's launch call, outside
+    the middles of the device's idle gaps."""
     events = []
     for k, base in enumerate((0.0, 1100.0)):
+        c = 10 * k
         events += [ev(CALL_SPAN, "user_annotation", base, 1000.0),
                    ev("aten::copy_", "cpu_op", base, 900.0),
                    ev("Memcpy HtoD (Pageable -> Device)", "gpu_memcpy", base + 10, 100.0),
-                   ev("void warp_rows_kernel<true>(Args)", "kernel", base + 200, 200.0),
-                   ev("void elementwise_kernel<128>", "kernel", base + 380, 40.0),
-                   ev("edge_distances_kernel(Args)", "kernel", base + 500, 50.0),
+                   ev("cudaLaunchKernel", "cuda_runtime", base + 190, 1.0, c + 1),
+                   ev("void warp_rows_kernel<true>(Args)", "kernel", base + 200, 200.0, c + 1),
+                   ev("cudaLaunchKernel", "cuda_runtime", base + 370, 1.0, c + 2),
+                   ev("void elementwise_kernel<128>", "kernel", base + 380, 40.0, c + 2),
+                   ev("cudaLaunchKernel", "cuda_runtime", base + 490, 1.0, c + 3),
+                   ev("edge_distances_kernel(Args)", "kernel", base + 500, 50.0, c + 3),
                    ev("Memcpy DtoH (Device -> Pageable)", "gpu_memcpy", base + 700, 100.0)]
     events.append(ev("Memset (Device)", "gpu_memset", 1050.0, 10.0))
-    events.append(ev("late kernel", "kernel", 5000.0, 100.0))  # outside the stretch
+    events.append(ev("cudaLaunchKernel", "cuda_runtime", 4990.0, 1.0, 99))
+    events.append(ev("late kernel", "kernel", 5000.0, 100.0, 99))  # outside the stretch
     return Trace(events)
 
 

@@ -15,7 +15,7 @@ from pathlib import Path
 import pytest
 
 from stereo_bench import run
-from stereo_bench.conftest import BENCH, CELLS
+from stereo_bench.conftest import BENCH, CELLS, tiny_copy
 
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parent
@@ -32,6 +32,15 @@ def drive(root: Path, workload: str, trace: int, seed: int = 2 ** 31 + 99, cwd=R
             f"bench_path=Path({str(root.parent / 'BENCHMARK.json')!r}), root=Path({str(root)!r})))")
     return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=cwd, timeout=600, env=env)
+
+
+def _copy_of_the_benchmark(dst: Path) -> Path:
+    """dst/stereo_bench: the benchmark's folder as it is, beside a copy of
+    BENCHMARK.json. Returns the folder."""
+    root = dst / "stereo_bench"
+    shutil.copytree(HERE, root, ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(REPO / "BENCHMARK.json", dst / "BENCHMARK.json")
+    return root
 
 
 def last_line(out: str):
@@ -64,6 +73,13 @@ def test_cell_runs_end_to_end_on_cpu(tiny_root, workload, trace):
     assert line["device"]["platform"] == "cpu"  # never a device name for a CPU run
     err = proc.stderr.strip().splitlines()
     assert all(e.startswith("check ") for e in err[-len(line["checks"]):])
+
+
+def test_fill_only_where_the_configuration_names_one():
+    assert run.fill_of({"fill_technique": "GPU Warp (Fast)"}) == "gpu_warp"
+    assert run.fill_of({"divergence": 4.5}) is None
+    with pytest.raises(KeyError):
+        run.fill_of({"fill_technique": "Fill - No Such Fill"})
 
 
 @pytest.mark.parametrize("in_flight", [0, 2])
@@ -111,9 +127,7 @@ def test_refuses_without_a_card(tiny_root):
 def test_fails_without_the_program(tmp_path):
     """A directory that holds only BENCHMARK.json and the benchmark's
     folder: no result, another exit code than 0."""
-    shutil.copytree(HERE, tmp_path / "stereo_bench",
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    shutil.copy(REPO / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    _copy_of_the_benchmark(tmp_path)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "stereo_bench/run.py", "--workload", CELLS[0],
                            "--seed", "5", "--seconds", "1", "--trace", "0", "--device", "cpu"],
@@ -169,6 +183,155 @@ def test_new_cell_by_new_files_alone(tiny_root):
     assert {k: v for k, v in after.items() if k in before} == before
 
 
+# A driver of an entry that no cell has: a matmul, a conv2d and a group_norm
+# under one program span, compared with the same in float64.
+THROWAWAY_DRIVER = '''"""A throwaway entry: plain torch operations under one span."""
+import torch
+
+from comfystereo_tpu_torch.utils.profiling import span
+
+TINY = dict(size=8, frames_per_call=2, distinct=4, check_among=4, trace_calls=2)
+
+
+def inputs(traffic, seed):
+    g = torch.Generator().manual_seed(seed)
+    n, s, c = traffic["frames_per_call"], traffic["size"], traffic["channels"]
+    return [torch.randn(n, c, s, s, generator=g) for _ in range(traffic["distinct"] // n)]
+
+
+def _weights(settings, channels, dtype, device):
+    g = torch.Generator().manual_seed(settings["weight_seed"])
+    k = torch.randn(channels, channels, 3, 3, generator=g) / (3 * channels ** 0.5)
+    w = torch.randn(channels, channels, generator=g) / channels ** 0.5
+    return k.to(device, dtype), w.to(device, dtype)
+
+
+def _block(x, k, w, groups):
+    y = torch.nn.functional.conv2d(x, k, padding=1)
+    y = torch.nn.functional.group_norm(y, groups)
+    return torch.matmul(w, y.flatten(2)).view_as(y)
+
+
+def program(settings, device):
+    cache = {}
+
+    def submit(x):
+        if x.shape[1] not in cache:
+            cache[x.shape[1]] = _weights(settings, x.shape[1], torch.float32, device)
+        x = x.to(device)
+        with span("throwaway.block"):
+            return _block(x, *cache[x.shape[1]], settings["groups"])
+    return submit
+
+
+def collect(out):
+    return out.cpu()
+
+
+def reference(settings, inp, device, frames):
+    k, w = _weights(settings, inp.shape[1], torch.float64, device)
+    return _block(inp[frames].to(device, torch.float64), k, w, settings["groups"]).cpu()
+
+
+def select(out, frames):
+    return out[frames]
+
+
+def compare(out, exp):
+    err = (out.double() - exp).abs().max() / exp.abs().max()
+    return {"rel_err": float(err)}
+'''
+
+
+def add_throwaway_entry(root: Path, size: int = 64) -> str:
+    """A configuration with no `fill_technique`, a traffic mix of a new
+    entry, that entry's driver, its limits and a per-layer reader of its
+    span, written as new files under the benchmark's folder `root`, and new
+    entries in the BENCHMARK.json beside it. Returns the cell's name."""
+    cell = "throwaway_entry.throwaway_block"
+    (root / "configs" / "throwaway_entry.json").write_text(json.dumps(
+        {"name": "throwaway_entry", "source": "https://example.org", "reduced": [],
+         "settings": {"groups": 8, "weight_seed": 11}}))
+    (root / "traffic" / "throwaway_block.json").write_text(json.dumps(
+        {"name": "throwaway_block", "entry": "throwaway_entry", "size": size, "channels": 64,
+         "frames_per_call": 8, "distinct": 32, "check_among": 8, "trace_calls": 4}))
+    (root / "drivers" / "throwaway_entry.py").write_text(THROWAWAY_DRIVER)
+    (root / "limits" / f"{cell}.json").write_text(json.dumps(
+        {"calls": 2, "frames": 2, "max": {"rel_err": 0.02}}))
+    (root / "metrics" / "throwaway_block_ms.py").write_text(
+        "from stereo_bench.spans import kernel_ms\n\n\n"
+        "def read(ctx):\n    return kernel_ms(ctx.trace, [\"throwaway.block\"])\n")
+    bench_path = root.parent / "BENCHMARK.json"
+    bench = json.loads(bench_path.read_text())
+    bench["configs"].append({"name": "throwaway_entry", "source": "https://example.org",
+                             "file": "stereo_bench/configs/throwaway_entry.json", "reduced": [],
+                             "why": "a test"})
+    bench["workloads"].append({"name": cell, "config": "throwaway_entry",
+                               "traffic": "throwaway_block", "chips": 1, "why": "a test"})
+    bench["end_to_end"][0]["workloads"].append(cell)
+    bench["per_layer"].append({"name": "throwaway_block_ms", "unit": "ms", "better": "lower",
+                               "source": "program_span", "layer": "harness",
+                               "moves": "frames_per_s", "workloads": [cell]})
+    bench_path.write_text(json.dumps(bench))
+    return cell
+
+
+def test_new_entry_by_new_files_alone(tmp_path):
+    """A cell of an entry that no cell had, with a configuration that names
+    no fill, added as new files and new entries in BENCHMARK.json: the tiny
+    copy takes the new driver's own tiny sizes, and the cell runs traced and
+    untraced with no file of the benchmark edited."""
+    src = _copy_of_the_benchmark(tmp_path / "src")
+    before = _digest(src)
+    cell = add_throwaway_entry(src)
+    root = tiny_copy(tmp_path / "tiny", src)
+    assert json.loads((root / "traffic" / "throwaway_block.json").read_text())["size"] == 8
+    copied = _digest(root)
+    for trace in (0, 1):
+        proc = drive(root, cell, trace)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        line = last_line(proc.stdout)
+        assert line["correct"] is True and line["checks"]["rel_err"]["value"] < 1e-5
+        if trace:
+            assert line["metrics"] == {}  # no kernel on the CPU: nothing to put to the span
+        else:
+            assert set(line["metrics"]) == {"frames_per_s", "setup_s"}
+    assert {k: v for k, v in _digest(src).items() if k in before} == before
+    assert _digest(root) == copied
+
+
+def test_tiny_copy_names_a_driver_without_tiny_sizes(tmp_path):
+    src = _copy_of_the_benchmark(tmp_path / "src")
+    add_throwaway_entry(src)
+    driver = src / "drivers" / "throwaway_entry.py"
+    driver.write_text(driver.read_text().replace("TINY = ", "SMALL = "))
+    with pytest.raises(ValueError, match="throwaway_entry"):
+        tiny_copy(tmp_path / "tiny", src)
+
+
+@pytest.mark.cuda
+def test_new_entry_on_the_card(tmp_path):
+    """The throwaway entry's cell at its own size on the card, traced: every
+    kernel of the stretch (cuBLAS, cuDNN and PyTorch's own) is paired with
+    its launch call, and the span's reader reads its kernel time."""
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from stereo_bench.spans import attributed
+    from stereo_bench.trace import Trace
+    root = _copy_of_the_benchmark(tmp_path)
+    cell = add_throwaway_entry(root)
+    proc = drive(root, cell, 1, device=None)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = last_line(proc.stdout)
+    assert line["correct"] is True and line["device"]["platform"] == "gpu"
+    assert line["metrics"]["throwaway_block_ms"]["value"] > 0
+    found = attributed(Trace.load(str(run.BUILD / f"{cell}.trace.json")))
+    assert found is not None
+    under = [name for name, _, u, _ in found if "throwaway.block" in u]
+    assert len(under) >= 3 * 4 and any("gemm" in name.lower() for name in under)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("workload", CELLS)
 def test_cell_on_the_card(tmp_path, workload):
@@ -176,9 +339,7 @@ def test_cell_on_the_card(tmp_path, workload):
     import torch
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    root = tmp_path / "stereo_bench"
-    shutil.copytree(HERE, root, ignore=shutil.ignore_patterns("__pycache__"))
-    shutil.copy(REPO / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    root = _copy_of_the_benchmark(tmp_path)
     proc = subprocess.run([sys.executable, str(root / "run.py"), "--workload", workload,
                            "--seed", "4000000001", "--seconds", "2", "--trace", "0"],
                           capture_output=True, text=True, cwd=REPO, timeout=900,

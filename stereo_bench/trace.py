@@ -8,6 +8,13 @@ The last span lasts until every traced call's output is on the host, so
 the device's work for the stretch lies inside it. Device activity is every event of the categories `kernel`,
 `gpu_memcpy` and `gpu_memset`; the device is busy where any of them runs.
 Times are in seconds.
+
+Apart from those, `program` holds the program's own spans (every
+`user_annotation` but `CALL_SPAN`) with their host thread, and the
+profiler's correlation ids tie each kernel to the host call that launched
+it: `kernel_ids` gives each kernel's id (None where it has none), and
+`launch_calls` the `cuda_runtime` or `cuda_driver` event of each id, the
+outermost where a runtime call made a driver call of the same id.
 """
 from __future__ import annotations
 
@@ -18,9 +25,12 @@ from typing import Dict, Iterable, List, Optional, Tuple
 CALL_SPAN = "stereo_bench.call"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "cuda_runtime", "cuda_driver", "user_annotation", "python_function")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 TOP = 10
 
 Interval = Tuple[float, float]
+# (name, start, end, (process, thread)) of a host event.
+HostEvent = Tuple[str, float, float, Tuple]
 
 
 def _union(intervals: Iterable[Interval]) -> List[Interval]:
@@ -37,15 +47,32 @@ class Trace:
     """The device and host events of a traced stretch."""
 
     def __init__(self, events: List[Dict]):
+        def of(cats):
+            return [e for e in events if e.get("ph") == "X" and e.get("cat") in cats]
+
+        def span(e):
+            return e["name"], e["ts"] * 1e-6, (e["ts"] + e.get("dur", 0.0)) * 1e-6
+
         def spans(cats):
-            return [(e["name"], e["ts"] * 1e-6, (e["ts"] + e.get("dur", 0.0)) * 1e-6)
-                    for e in events if e.get("ph") == "X" and e.get("cat") in cats]
+            return [span(e) for e in of(cats)]
+
+        def threaded(e) -> HostEvent:
+            return span(e) + ((e.get("pid"), e.get("tid")),)
+
+        def correlation(e) -> Optional[int]:
+            return (e.get("args") or {}).get("correlation")
 
         self.calls = sorted((a, b) for n, a, b in spans(("user_annotation",)) if n == CALL_SPAN)
         self.device = spans(DEVICE_CATS)
         self.kernels = spans(("kernel",))
         self.copies = spans(("gpu_memcpy",))
         self.host = [s for s in spans(HOST_CATS) if s[0] != CALL_SPAN]
+        self.program = [threaded(e) for e in of(("user_annotation",)) if e["name"] != CALL_SPAN]
+        self.kernel_ids = [correlation(e) for e in of(("kernel",))]
+        self.launch_calls: Dict[int, HostEvent] = {}
+        for e in sorted(of(LAUNCH_CATS), key=lambda e: (e["ts"], -e.get("dur", 0.0))):
+            if correlation(e) is not None:
+                self.launch_calls.setdefault(correlation(e), threaded(e))
         if self.calls:
             self.start, self.end = self.calls[0][0], max(b for _, b in self.calls)
         else:

@@ -85,3 +85,50 @@ def compare(out: np.ndarray, exp: np.ndarray) -> Dict[str, float]:
     diff = np.abs(out.astype(np.int16) - exp.astype(np.int16))
     return {"u8_off_share": float(np.count_nonzero(diff)) / diff.size,
             "u8_max_off": float(diff.max())}
+
+
+def _unchanged(monkeypatch):
+    """Each eye is the source, never warped or filled."""
+    from comfystereo_tpu_torch import pipeline
+
+    def eye(src, eye_d, div, sign, cfg, depth_range=None):
+        gap = torch.zeros(eye_d.shape, dtype=torch.bool, device=eye_d.device)
+        return src, (gap if cfg.fill_technique == "gpu_warp" else None)
+    monkeypatch.setattr(pipeline, "_eye", eye)
+
+
+def _half_batch(monkeypatch):
+    """The chunk's second half of frames is not computed: it repeats the
+    first half's results."""
+    from comfystereo_tpu_torch.utils import video
+    real = video.stereo_pipeline
+
+    def half(image, depth, cfg):
+        k = max(1, image.shape[0] // 2)
+        out = real(image[:k], depth[:k], cfg)
+        reps = -(-image.shape[0] // k)
+        return {key: (tuple(torch.cat([t] * reps)[:image.shape[0]] for t in val)
+                      if isinstance(val, tuple) else torch.cat([val] * reps)[:image.shape[0]])
+                for key, val in out.items()}
+    monkeypatch.setattr(video, "stereo_pipeline", half)
+
+
+def _altered(monkeypatch):
+    """One value of the packed pair moved by one step of 1/255 where the
+    pipeline produces it."""
+    from comfystereo_tpu_torch import pipeline
+    real = pipeline._outputs
+
+    def outputs(*a, **kw):
+        out = real(*a, **kw)
+        s = out["stereo"][0].clone()
+        v = s.reshape(-1)
+        v[7] = v[7] + 1.0 / 255 if v[7] < 0.5 else v[7] - 1.0 / 255
+        out["stereo"] = (s,) + tuple(out["stereo"][1:])
+        return out
+    monkeypatch.setattr(pipeline, "_outputs", outputs)
+
+
+# The faults of the chunk path, each planted underneath the timed call by
+# `fault(monkeypatch)`: with any one of them a run has to read not correct.
+FAULTS = (_unchanged, _half_batch, _altered)

@@ -1,10 +1,13 @@
 """What decides `correct` fails when it should: the cell's control in the
-program's place, and a run whose timed path is broken underneath (a step
-that returns its state unchanged, half of a chunk left out, one output
-value altered where it is produced). On the CPU, at a tiny size, through
-the program's plain versions; the harness's look for a card is skipped
-with `--device cpu`. Run these tests on their own (`pytest stereo_bench`):
-the runs refuse a process in which JAX is loaded."""
+program's place, and a run whose timed path is broken underneath by each of
+the faults that the driver of the cell's traffic gives in its `FAULTS` (the
+chunk path's: a step that returns its state unchanged, half of a chunk left
+out, one output value altered where it is produced). A cell whose driver
+gives none fails `test_driver_gives_faults`, which names the driver's file.
+On the CPU, at a tiny size, through the program's plain versions; the
+harness's look for a card is skipped with `--device cpu`. Run these tests
+on their own (`pytest stereo_bench`): the runs refuse a process in which
+JAX is loaded."""
 from __future__ import annotations
 
 import io
@@ -15,7 +18,7 @@ import pytest
 import torch
 
 from stereo_bench import run
-from stereo_bench.conftest import CELLS
+from stereo_bench.conftest import BENCH, CELLS, HERE
 
 
 @pytest.mark.parametrize("workload", CELLS)
@@ -44,50 +47,23 @@ def _run(tiny_root, workload):
     return json.loads(out.getvalue().strip().splitlines()[-1])
 
 
-def _unchanged(monkeypatch):
-    """Each eye is the source, never warped or filled."""
-    from comfystereo_tpu_torch import pipeline
-
-    def eye(src, eye_d, div, sign, cfg, depth_range=None):
-        gap = torch.zeros(eye_d.shape, dtype=torch.bool, device=eye_d.device)
-        return src, (gap if cfg.fill_technique == "gpu_warp" else None)
-    monkeypatch.setattr(pipeline, "_eye", eye)
+def _faults(workload):
+    """The driver file of the cell's traffic, as `run.load_cell` finds it,
+    and the faults that driver gives."""
+    cell = run.load_cell(BENCH, workload, False, HERE)
+    entry = cell.traffic["entry"]
+    return f"stereo_bench/drivers/{entry}.py", getattr(cell.driver, "FAULTS", None)
 
 
-def _half_batch(monkeypatch):
-    """The chunk's second half of frames is not computed: it repeats the
-    first half's results."""
-    from comfystereo_tpu_torch.utils import video
-    real = video.stereo_pipeline
-
-    def half(image, depth, cfg):
-        k = max(1, image.shape[0] // 2)
-        out = real(image[:k], depth[:k], cfg)
-        reps = -(-image.shape[0] // k)
-        return {key: (tuple(torch.cat([t] * reps)[:image.shape[0]] for t in val)
-                      if isinstance(val, tuple) else torch.cat([val] * reps)[:image.shape[0]])
-                for key, val in out.items()}
-    monkeypatch.setattr(video, "stereo_pipeline", half)
+FAULTS = [(c, f) for c in CELLS for f in (_faults(c)[1] or ())]
 
 
-def _altered(monkeypatch):
-    """One value of the packed pair moved by one step of 1/255 where the
-    pipeline produces it."""
-    from comfystereo_tpu_torch import pipeline
-    real = pipeline._outputs
-
-    def outputs(*a, **kw):
-        out = real(*a, **kw)
-        s = out["stereo"][0].clone()
-        v = s.reshape(-1)
-        v[7] = v[7] + 1.0 / 255 if v[7] < 0.5 else v[7] - 1.0 / 255
-        out["stereo"] = (s,) + tuple(out["stereo"][1:])
-        return out
-    monkeypatch.setattr(pipeline, "_outputs", outputs)
-
-
-FAULTS = ([(c, _unchanged) for c in CELLS] + [(c, _half_batch) for c in CELLS]
-          + [(c, _altered) for c in CELLS])
+@pytest.mark.parametrize("workload", CELLS)
+def test_driver_gives_faults(workload):
+    path, faults = _faults(workload)
+    assert faults and all(callable(f) for f in faults), (
+        f"{path}, the driver of cell {workload}, gives no FAULTS: a tuple of functions "
+        "fault(monkeypatch), each breaking its timed path underneath in one way")
 
 
 def test_sound_run_is_correct(tiny_root):

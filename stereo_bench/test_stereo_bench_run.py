@@ -183,45 +183,56 @@ def test_new_cell_by_new_files_alone(tiny_root):
     assert {k: v for k, v in after.items() if k in before} == before
 
 
-# A driver of an entry that no cell has: a matmul, a conv2d and a group_norm
-# under one program span, compared with the same in float64.
-THROWAWAY_DRIVER = '''"""A throwaway entry: plain torch operations under one span."""
+# A driver of an entry that no cell has, which runs a model of its own: a 3x3
+# convolution of an RGB frame to `channels` maps, a group norm and a channel
+# mix, under one program span; its width in the configuration, cut by its
+# TINY_SETTINGS in the tests; its control the block in bfloat16; its faults
+# planted in the torch functions that the block calls and the reference,
+# written out in float64, does not.
+THROWAWAY_DRIVER = '''"""A throwaway entry: a block of plain torch operations under one span."""
 import torch
 
 from comfystereo_tpu_torch.utils.profiling import span
 
 TINY = dict(size=8, frames_per_call=2, distinct=4, check_among=4, trace_calls=2)
+TINY_SETTINGS = dict(channels=16)
 
 
 def inputs(traffic, seed):
     g = torch.Generator().manual_seed(seed)
-    n, s, c = traffic["frames_per_call"], traffic["size"], traffic["channels"]
-    return [torch.randn(n, c, s, s, generator=g) for _ in range(traffic["distinct"] // n)]
+    n, s = traffic["frames_per_call"], traffic["size"]
+    return [torch.rand(n, 3, s, s, generator=g) for _ in range(traffic["distinct"] // n)]
 
 
-def _weights(settings, channels, dtype, device):
+def _weights(settings, dtype, device):
     g = torch.Generator().manual_seed(settings["weight_seed"])
-    k = torch.randn(channels, channels, 3, 3, generator=g) / (3 * channels ** 0.5)
-    w = torch.randn(channels, channels, generator=g) / channels ** 0.5
+    c = settings["channels"]
+    k = torch.randn(c, 3, 3, 3, generator=g) / 27 ** 0.5
+    w = torch.randn(c, c, generator=g) / c ** 0.5
     return k.to(device, dtype), w.to(device, dtype)
 
 
-def _block(x, k, w, groups):
-    y = torch.nn.functional.conv2d(x, k, padding=1)
-    y = torch.nn.functional.group_norm(y, groups)
-    return torch.matmul(w, y.flatten(2)).view_as(y)
+def _program(settings, device, dtype):
+    k, w = _weights(settings, dtype, device)
+
+    def submit(x):
+        x = x.to(device, dtype)
+        with span("throwaway.block"):
+            y = torch.nn.functional.conv2d(x, k, padding=1)
+            y = torch.nn.functional.group_norm(y, settings["groups"])
+            return torch.matmul(w, y.flatten(2)).view_as(y)
+    return submit
 
 
 def program(settings, device):
-    cache = {}
+    return _program(settings, device, torch.float32)
 
-    def submit(x):
-        if x.shape[1] not in cache:
-            cache[x.shape[1]] = _weights(settings, x.shape[1], torch.float32, device)
-        x = x.to(device)
-        with span("throwaway.block"):
-            return _block(x, *cache[x.shape[1]], settings["groups"])
-    return submit
+
+def control(settings, kind, device):
+    """`program:dtype=bfloat16`: the block in bfloat16."""
+    if kind != "program:dtype=bfloat16":
+        raise ValueError(f"unknown control {kind!r}")
+    return _program(settings, device, torch.bfloat16)
 
 
 def collect(out):
@@ -229,8 +240,16 @@ def collect(out):
 
 
 def reference(settings, inp, device, frames):
-    k, w = _weights(settings, inp.shape[1], torch.float64, device)
-    return _block(inp[frames].to(device, torch.float64), k, w, settings["groups"]).cpu()
+    """The block written out in float64: the convolution as a sum over its
+    nine taps, the group norm from its groups' mean and variance."""
+    k, w = _weights(settings, torch.float64, device)
+    x = torch.nn.functional.pad(inp[frames].to(device, torch.float64), (1, 1, 1, 1))
+    h, wd = x.shape[2] - 2, x.shape[3] - 2
+    y = sum(torch.einsum("oc,nchw->nohw", k[:, :, i, j], x[:, :, i:i + h, j:j + wd])
+            for i in range(3) for j in range(3))
+    g = y.reshape(y.shape[0], settings["groups"], -1)
+    g = (g - g.mean(-1, keepdim=True)) / (g.var(-1, unbiased=False, keepdim=True) + 1e-5).sqrt()
+    return torch.einsum("oc,nchw->nohw", w, g.view_as(y)).cpu()
 
 
 def select(out, frames):
@@ -240,24 +259,46 @@ def select(out, frames):
 def compare(out, exp):
     err = (out.double() - exp).abs().max() / exp.abs().max()
     return {"rel_err": float(err)}
+
+
+def _no_norm(monkeypatch):
+    """The group norm left out: its input passes on unchanged."""
+    monkeypatch.setattr(torch.nn.functional, "group_norm", lambda x, groups, *a, **kw: x)
+
+
+def _half_frames(monkeypatch):
+    """Half of a call's frames computed: the convolution's second half of
+    frames repeats its first half's."""
+    real = torch.nn.functional.conv2d
+
+    def conv2d(x, *a, **kw):
+        k = max(1, x.shape[0] // 2)
+        return torch.cat([real(x[:k], *a, **kw)] * -(-x.shape[0] // k))[:x.shape[0]]
+    monkeypatch.setattr(torch.nn.functional, "conv2d", conv2d)
+
+
+FAULTS = (_no_norm, _half_frames)
 '''
 
 
 def add_throwaway_entry(root: Path, size: int = 64) -> str:
-    """A configuration with no `fill_technique`, a traffic mix of a new
-    entry, that entry's driver, its limits and a per-layer reader of its
-    span, written as new files under the benchmark's folder `root`, and new
-    entries in the BENCHMARK.json beside it. Returns the cell's name."""
+    """A configuration with no `fill_technique`, with its model's width and
+    its control, a traffic mix of a new entry, that entry's driver (with its
+    tiny sizes and settings, its control and its faults), its limits and a
+    per-layer reader of its span, written as new files under the
+    benchmark's folder `root`, and new entries in the BENCHMARK.json beside
+    it. Returns the cell's name."""
     cell = "throwaway_entry.throwaway_block"
     (root / "configs" / "throwaway_entry.json").write_text(json.dumps(
         {"name": "throwaway_entry", "source": "https://example.org", "reduced": [],
-         "settings": {"groups": 8, "weight_seed": 11}}))
+         "control": "program:dtype=bfloat16",
+         "settings": {"channels": 64, "groups": 8, "weight_seed": 11}}))
     (root / "traffic" / "throwaway_block.json").write_text(json.dumps(
-        {"name": "throwaway_block", "entry": "throwaway_entry", "size": size, "channels": 64,
+        {"name": "throwaway_block", "entry": "throwaway_entry", "size": size,
          "frames_per_call": 8, "distinct": 32, "check_among": 8, "trace_calls": 4}))
     (root / "drivers" / "throwaway_entry.py").write_text(THROWAWAY_DRIVER)
     (root / "limits" / f"{cell}.json").write_text(json.dumps(
-        {"calls": 2, "frames": 2, "max": {"rel_err": 0.02}}))
+        {"calls": 2, "frames": 2, "max": {"rel_err": 0.002}}))
     (root / "metrics" / "throwaway_block_ms.py").write_text(
         "from stereo_bench.spans import kernel_ms\n\n\n"
         "def read(ctx):\n    return kernel_ms(ctx.trace, [\"throwaway.block\"])\n")
@@ -286,6 +327,8 @@ def test_new_entry_by_new_files_alone(tmp_path):
     cell = add_throwaway_entry(src)
     root = tiny_copy(tmp_path / "tiny", src)
     assert json.loads((root / "traffic" / "throwaway_block.json").read_text())["size"] == 8
+    settings = json.loads((root / "configs" / "throwaway_entry.json").read_text())["settings"]
+    assert settings == {"channels": 16, "groups": 8, "weight_seed": 11}
     copied = _digest(root)
     for trace in (0, 1):
         proc = drive(root, cell, trace)
@@ -307,6 +350,95 @@ def test_tiny_copy_names_a_driver_without_tiny_sizes(tmp_path):
     driver.write_text(driver.read_text().replace("TINY = ", "SMALL = "))
     with pytest.raises(ValueError, match="throwaway_entry"):
         tiny_copy(tmp_path / "tiny", src)
+
+
+def test_tiny_copy_cuts_only_the_traffic_of_the_video_cells(tmp_path):
+    """The chunk driver gives no TINY_SETTINGS: the tiny copy rewrites the
+    traffic mixes alone, and copies every other file byte for byte."""
+    root = tiny_copy(tmp_path)
+    src = {k: v for k, v in _digest(HERE).items()
+           if not (k.name.startswith("test_") or k.name == "conftest.py")}
+    copied = _digest(root)
+    assert set(copied) == set(src)
+    assert {k for k in src if copied[k] != src[k]} <= {k for k in src if k.parts[0] == "traffic"}
+    assert (tmp_path / "BENCHMARK.json").read_bytes() == (REPO / "BENCHMARK.json").read_bytes()
+
+
+@pytest.mark.parametrize("channels, agree", [(16, True), (32, False)])
+def test_tiny_copy_refuses_two_drivers_that_cut_one_configuration_unlike(tmp_path, channels,
+                                                                         agree):
+    """A second driver whose cell shares the throwaway configuration: with
+    the same TINY_SETTINGS the copy takes them, with others it raises and
+    names both drivers."""
+    src = _copy_of_the_benchmark(tmp_path / "src")
+    add_throwaway_entry(src)
+    (src / "drivers" / "throwaway_twin.py").write_text(THROWAWAY_DRIVER.replace(
+        "TINY_SETTINGS = dict(channels=16)", f"TINY_SETTINGS = dict(channels={channels})"))
+    mix = json.loads((src / "traffic" / "throwaway_block.json").read_text())
+    mix.update(name="throwaway_twin", entry="throwaway_twin")
+    (src / "traffic" / "throwaway_twin.json").write_text(json.dumps(mix))
+    bench_path = src.parent / "BENCHMARK.json"
+    bench = json.loads(bench_path.read_text())
+    bench["workloads"].append({"name": "throwaway_entry.throwaway_twin",
+                               "config": "throwaway_entry", "traffic": "throwaway_twin",
+                               "chips": 1, "why": "a test"})
+    bench_path.write_text(json.dumps(bench))
+    if agree:
+        root = tiny_copy(tmp_path / "tiny", src)
+        cfg = json.loads((root / "configs" / "throwaway_entry.json").read_text())
+        assert cfg["settings"]["channels"] == 16
+        return
+    with pytest.raises(ValueError) as e:
+        tiny_copy(tmp_path / "tiny", src)
+    for name in ("throwaway_entry", "throwaway_twin"):
+        assert f"drivers/{name}.py" in str(e.value)
+
+
+def _own_tests(root: Path, select: str):
+    """The test files of the benchmark copy `root`, run on the CPU in a fresh
+    process for the cases that `select` picks, with the copy first on the
+    path and the checkout's program after it."""
+    shutil.copy(REPO / "pyproject.toml", root.parent / "pyproject.toml")  # the tests' markers
+    path = [str(root.parent), str(REPO)] + [
+        p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]
+    proc = subprocess.run([sys.executable, "-m", "pytest", "stereo_bench", "-q", "-rA",
+                           "-m", "not cuda", "-k", select, "-p", "no:cacheprovider"],
+                          capture_output=True, text=True, cwd=root.parent, timeout=900,
+                          env={**os.environ, "PYTHONPATH": os.pathsep.join(path)})
+    cases = {}
+    for ln in proc.stdout.splitlines():
+        word, _, rest = ln.partition(" ")
+        if word in ("PASSED", "FAILED", "ERROR") and "::" in rest:
+            cases[rest.split("::", 1)[1].split(" - ")[0]] = word
+    return proc, cases
+
+
+def test_entry_of_a_model_passes_the_benchmarks_own_tests(tmp_path):
+    """The throwaway entry brings what a new entry that runs a model has to
+    bring (`TINY`, `TINY_SETTINGS`, a `control`, `FAULTS`, a `reference`):
+    registered as a cell in a copy of the benchmark, every case of the
+    copy's own tests for it passes; without its `FAULTS` the same run fails
+    and names its driver."""
+    root = _copy_of_the_benchmark(tmp_path)
+    cell = add_throwaway_entry(root)
+    proc, cases = _own_tests(root, "throwaway")
+    assert proc.returncode == 0, proc.stdout[-4000:]
+    want = [f"test_cell_runs_end_to_end_on_cpu[{cell}-0]",
+            f"test_cell_runs_end_to_end_on_cpu[{cell}-1]", f"test_control_fails[{cell}]",
+            f"test_driver_gives_faults[{cell}]", f"test_fault_is_not_correct[{cell}-no_norm]",
+            f"test_fault_is_not_correct[{cell}-half_frames]", f"test_cells[{cell}]",
+            "test_configs[throwaway_entry]", "test_metric_files_and_keys[throwaway_block_ms]"]
+    assert {c: "PASSED" for c in want}.items() <= cases.items(), cases
+    assert set(cases.values()) == {"PASSED"}, cases
+
+    driver = root / "drivers" / "throwaway_entry.py"
+    driver.write_text(driver.read_text().replace("\nFAULTS = (", "\nNOT_FAULTS = ("))
+    proc, cases = _own_tests(root, "throwaway")
+    assert proc.returncode != 0
+    assert cases[f"test_driver_gives_faults[{cell}]"] == "FAILED", cases
+    assert {k for k, v in cases.items() if v != "PASSED"} == {
+        f"test_driver_gives_faults[{cell}]"}, cases
+    assert "stereo_bench/drivers/throwaway_entry.py" in proc.stdout
 
 
 @pytest.mark.cuda

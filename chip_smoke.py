@@ -18,7 +18,9 @@ any failure ends the run with a non-zero exit code:
    fixture, < 0.1% of pixels differing on noise), and the edge-distance
    kernel through the entry taking masks (four mask pairs) and the fused
    entry forming the blur's weights from fixture, noise and flat depth
-   (bit-equal); the bounded gather against torch.gather at the
+   (bit-equal), and the box-blend kernel on those weights and depths, with
+   the cells' window (20 taps, radius 6), no vertical box and a radius past
+   its register ring (bit-equal); the bounded gather against torch.gather at the
    fills' shapes, int32 keys and a [B,1,H,W] index plane over [B,3,H,W]
    colour (bit-equal); the exact polylines against its plain version on
    the same 12 frames, sharp and soft, divergence +-4.5% with separation 0
@@ -52,10 +54,10 @@ any failure ends the run with a non-zero exit code:
 3. the main paths at full size, each with every launch counter set to 0 just
    before and read just after: StereoImageNode().generate on 12 frames of
    1920x1080 with the default config (gpu_warp, depth blur, left-right,
-   batch_size=12: warp 2, distance 1), then device_chunk on the same frames
+   batch_size=12: warp 2, distance 1, box blend 1), then device_chunk on the same frames
    as uint8 BGR (its result page-locked on the host, within 1 LSB of the
    node's); the node with "Fill - Polylines Sharp" (polylines 2,
-   distance 1, warp 0); stereo_pipeline once for each other fill at 1080p
+   distance 1, box blend 1, warp 0); stereo_pipeline once for each other fill at 1080p
    B=12 (gather launches printed; every gather fill must launch it); with
    polylines_exact=False, stereo_pipeline for polylines_sharp,
    polylines_soft and hybrid_edge_plus (supersampled polylines 2, exact
@@ -169,9 +171,12 @@ any failure ends the run with a non-zero exit code:
 `--kernel-times` only builds and times the flash kernel (beside
 scaled_dot_product_attention), the gather (beside torch.gather), both
 polylines kernels (sharp and soft, through the entries that take x, and
-the fused entries where the tree has them), and the warp and distance
+the fused entries where the tree has them), the warp and distance
 kernels (through the entries of the Pallas contracts, and the fused
-entries where the tree has them) and prints one JSON line; with
+entries where the tree has them), and the blur's box sums and blends after
+the edge weights (the box-blend kernel where the tree has it, beside its
+bound and the plain composition, which every tree has) and prints one JSON
+line; with
 `--root DIR` it imports the package from DIR, so that a parent tree
 unpacked under `build/` and the change can be timed in turns in one call.
 
@@ -394,10 +399,12 @@ def phase_kernels(dev, n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
         sync()
         if not (torch.equal(kl, pl) and torch.equal(kr, pr)):
             raise AssertionError(f"edge weights (fused entry) differ from plain ({kind})")
+        n_blend = check_box_blend(d, kl.reshape(d.shape), kr.reshape(d.shape), kind)
     log(f"phase 2: warp kernel vs plain on [{n * h}, {w}] rows, both entries: gap masks "
         f"bit-equal in {len(cases)} cases each, fixture max |err| {warp_err:.3g}; "
         f"distance kernel bit-equal on {len(masks)} mask pairs, its fused entry on "
-        f"{len(depths)} depths (fixture, noise, flat)")
+        f"{len(depths)} depths (fixture, noise, flat); box-blend kernel bit-equal on "
+        f"those depths and weights, {n_blend} windows each")
     del flat_d, masks
     n_gather = check_gather(dev, n, h, w)
     n_poly = check_polylines(dev, image * 255.0,
@@ -411,9 +418,33 @@ def phase_kernels(dev, n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
         f"attention ({len(FLASH_SHAPES)} shapes; its gradient at {len(FLASH_GRAD_SHAPES)}) "
         "kernels agree with their plain versions")
     return {"warp_max_abs_err": warp_err, "distance_max_abs_err": 0.0,
-            "gather_max_abs_err": 0.0, "polylines_max_abs_err": 0.0,
+            "box_blend_max_abs_err": 0.0, "gather_max_abs_err": 0.0, "polylines_max_abs_err": 0.0,
             "polylines_ss_max_abs_err": 0.0, "flash_max_abs_err": flash_err,
             "flash_grad_max_abs_err": grad_errs}
+
+
+# (taps, radius) of the box-blend checks: the cells' window, no vertical
+# box, and a radius past the kernel's register ring.
+BOX_BLEND_WINDOWS = ((20, 6), (20, 0), (5, 12))
+
+
+def check_box_blend(depth, wl, wr, kind: str) -> int:
+    """The box-blend kernel against its plain version on [n, h, w] depth and
+    its edge weights, one launch a call; returns the windows checked."""
+    import torch
+    from comfystereo_tpu_torch.kernels import box_blend
+    for taps, radius in BOX_BLEND_WINDOWS:
+        before = box_blend.LAUNCHES
+        got = box_blend.box_blend(depth, wl, wr, taps=taps, radius=radius)
+        sync()
+        if box_blend.LAUNCHES != before + 1:
+            raise AssertionError("box_blend did not launch its kernel once")
+        want = box_blend.box_blend_plain(depth, wl, wr, taps=taps, radius=radius)
+        sync()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"box-blend kernel differs from plain ({kind}, {taps} taps, "
+                                 f"radius {radius})")
+    return len(BOX_BLEND_WINDOWS)
 
 
 def check_warp(image, cases) -> float:
@@ -977,7 +1008,8 @@ def phase_main_path(dev, n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
     sec = time.perf_counter() - t0
     launches = read_launches()
     want = {"warp_rows": 2, "edge_distances": 1, "bounded_take_along_w": 0,
-            "polylines_exact_rows": 0, "polylines_scanline": 0, "flash_attention": 0}
+            "polylines_exact_rows": 0, "polylines_scanline": 0, "flash_attention": 0,
+            "box_blend": 1}
     if launches != want:
         raise AssertionError(f"gpu_warp path launches {launches}, expected {want}")
     parallax = check_node_outputs(stereo, left_d, right_d, mask, (n, h, w), n, h, w)
@@ -1011,7 +1043,8 @@ def phase_main_path(dev, n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
     sec = time.perf_counter() - t0
     poly_launches = read_launches()
     want = {"warp_rows": 0, "edge_distances": 1, "bounded_take_along_w": 0,
-            "polylines_exact_rows": 2, "polylines_scanline": 0, "flash_attention": 0}
+            "polylines_exact_rows": 2, "polylines_scanline": 0, "flash_attention": 0,
+            "box_blend": 1}
     if poly_launches != want:
         raise AssertionError(f"polylines_sharp path launches {poly_launches}, "
                              f"expected {want}")
@@ -1034,8 +1067,8 @@ def phase_main_path(dev, n: int = FRAMES, h: int = HEIGHT, w: int = WIDTH):
         sync()
         got = read_launches()
         fill_launches[fill] = got
-        if (got["edge_distances"] != 1 or got["warp_rows"] != 0 or got["flash_attention"]
-                or got["polylines_scanline"]
+        if (got["edge_distances"] != 1 or got["box_blend"] != 1 or got["warp_rows"] != 0
+                or got["flash_attention"] or got["polylines_scanline"]
                 or (got["bounded_take_along_w"] > 0) != (fill in GATHER_FILLS)
                 or got["polylines_exact_rows"] != (2 if fill.startswith("poly")
                                                    or fill == "hybrid_edge_plus" else 0)):
@@ -1072,7 +1105,8 @@ def phase_main_path_supersampled(dev, img_d, dep_d, bgr, dep_bgr):
         got = read_launches()
         out[fill] = got
         if (got["polylines_scanline"] != 2 or got["polylines_exact_rows"] != 0
-                or got["edge_distances"] != 1 or got["warp_rows"] != 0 or got["flash_attention"]
+                or got["edge_distances"] != 1 or got["box_blend"] != 1 or got["warp_rows"] != 0
+                or got["flash_attention"]
                 or (got["bounded_take_along_w"] > 0) != (fill == "hybrid_edge_plus")):
             raise AssertionError(f"{fill} (polylines_exact=False) launches {got}")
         o = res["stereo"][0]
@@ -2321,6 +2355,7 @@ def phase_times(dev, launches, errs, smi: str, name: str,
 
     warp_t = warp_times(image, depth255)
     dist_t = distance_times(depth255)
+    blend_t = box_blend_times(depth255)
     gather_t = gather_times(dev, n, h, w)
     poly_t = polylines_times(image * 255.0, depth255)
     ss_t = polylines_ss_times(image * 255.0, depth255)
@@ -2347,6 +2382,10 @@ def phase_times(dev, launches, errs, smi: str, name: str,
               "comfystereo_tpu/pallas/distance.py:59", dist_t["ms"], dist_t["plain_ms"],
               dist_t["bytes"], dist_t["ops"], errs["distance_max_abs_err"],
               redesigned=REDESIGNED["distance"]),
+        entry("box_blend", "comfystereo_tpu_torch/csrc/box_blend.cu",
+              "none (the JAX package leaves the box means to XLA)", blend_t["ms"],
+              blend_t["plain_ms"], blend_t["bytes"], blend_t["ops"],
+              errs["box_blend_max_abs_err"]),
         entry("bounded_take_along_w", "comfystereo_tpu_torch/csrc/gather.cu",
               "comfystereo_tpu/pallas/gather.py:100", gather_t["ms"],
               gather_t["plain_ms"], gather_t["bytes"], 0.0,
@@ -2397,7 +2436,8 @@ def phase_times(dev, launches, errs, smi: str, name: str,
         f"{warp_t['tested_mean']:.3f} [{smi}]")
     log(f"  edge_distances: fused entry (the path's) {dist_t['ms']:.4f} ms/launch, "
         f"{dist_t['bytes']:.4g} bytes; mask entry {dist_t['masks_ms']:.4f} ms [{smi}]")
-    for mod in ("warp_kernel", "distance", "gather", "polylines_exact", "polylines"):
+    for mod in ("warp_kernel", "distance", "box_blend", "gather", "polylines_exact",
+                "polylines"):
         log(f"  {mod} build [{smi}]: {ptxas_usage(mod)}")
     log(f"  dynamic shared memory per CTA [{smi}]: warp {warp_kernel.smem_bytes(w)} B "
         f"(widest row {warp_kernel.MAX_WIDTH}); distance {distance.smem_bytes(w)} B; gather "
@@ -2498,14 +2538,54 @@ def distance_times(depth255):
             "bytes": 12.0 * rows.numel(), "ops": 30.0 * rows.numel()}
 
 
+def box_blend_times(depth255, taps: int = 20, radius: int = 6):
+    """The blur's work after the edge weights on [n, h, w] depth and its edge
+    weights (the cells' window): ms of the plain composition, which every
+    tree has (`ops/blur.py`'s box means, clamps and blends), and of the
+    box-blend kernel where the tree has it; the kernel's bytes (depth and
+    both weights in, both eyes out: 20 B/px) and operations
+    (`box_blend_ops`)."""
+    import importlib.util
+    import torch
+    from comfystereo_tpu_torch.kernels import distance
+    from comfystereo_tpu_torch.ops import blur
+    n, h, w = depth255.shape
+    wl, wr = (t.reshape(depth255.shape) for t in distance.edge_weights_fused(
+        depth255.reshape(-1, w).contiguous(), edge_threshold=20.0, mask_radius=20,
+        falloff=2.0, height=h))
+
+    def composition():
+        gl = torch.clamp(blur.box_blur_h(wl, radius), 0.0, 1.0)
+        gr = torch.clamp(blur.box_blur_h(wr, radius), 0.0, 1.0)
+        b = blur.box_blur_w(depth255, taps)
+        return gl * b + (1.0 - gl) * depth255, gr * b + (1.0 - gr) * depth255
+
+    px = depth255.numel()
+    out = {"plain_ms": time_ms(composition), "bytes": 20.0 * px,
+           "ops": box_blend_ops(taps, radius) * px}
+    if importlib.util.find_spec("comfystereo_tpu_torch.kernels.box_blend") is not None:
+        from comfystereo_tpu_torch.kernels import box_blend
+        out["ms"] = time_ms(lambda: box_blend.box_blend(depth255, wl, wr, taps=taps,
+                                                         radius=radius))
+    return out
+
+
+def box_blend_ops(taps: int, radius: int) -> float:
+    """Operations a pixel of the box-blend kernel: per weight plane 2r adds,
+    a division and a clamp; the depth's n - 1 adds and a division; per eye
+    the blend's two products, a difference and a sum."""
+    return 2 * (2 * radius + 2) + taps + 2 * 4
+
+
 def blur_and_eye_parts(image, depth01, cfg):
     """ms per chunk of the blur's parts (the fused edge-weights kernel, the
-    weights' vertical box means, the depth's horizontal box mean, both
-    eyes' blends) and of the left eye's (each image's min and max, the
-    fused warp kernel), each timed alone on the pipeline's inputs."""
+    box-blend kernel: the weights' vertical box means, the depth's
+    horizontal box mean and both eyes' blends) and of the left eye's (each
+    image's min and max, the fused warp kernel), each timed alone on the
+    pipeline's inputs."""
     import torch
     from comfystereo_tpu_torch import pipeline as pipe
-    from comfystereo_tpu_torch.kernels import distance, warp_kernel
+    from comfystereo_tpu_torch.kernels import box_blend, distance, warp_kernel
     from comfystereo_tpu_torch.ops import blur
     d255 = pipe._depth255(depth01)
     n, h, w = d255.shape
@@ -2514,19 +2594,15 @@ def blur_and_eye_parts(image, depth01, cfg):
               mask_radius=int(cfg.depth_blur_strength),
               falloff=blur._f32(cfg.depth_blur_falloff), height=h)
     wl, wr = (t.reshape(d255.shape) for t in distance.edge_weights_fused(rows, **kw))
-    radius = int(cfg.depth_blur_vert_smooth)
-    blurred = blur.box_blur_w(d255, int(round(cfg.depth_blur_strength)))
+    blend_kw = dict(taps=int(round(cfg.depth_blur_strength)),
+                    radius=int(cfg.depth_blur_vert_smooth))
     left_d, _ = pipe._blurred_eye_depths(d255, cfg)
     src = pipe._eye_source(image, cfg)
     eye_rows, dmin, dmax, img, fkw = warp_fused_inputs(src, left_d, cfg.eye_divergences()[0],
                                                        -cfg.separation)
     return {
         "weights_kernel": time_ms(lambda: distance.edge_weights_fused(rows, **kw)),
-        "weights_vertical_box": time_ms(lambda: [torch.clamp(blur.box_blur_h(x, radius), 0.0, 1.0)
-                                                 for x in (wl, wr)]),
-        "depth_horizontal_box": time_ms(lambda: blur.box_blur_w(d255, int(round(
-            cfg.depth_blur_strength)))),
-        "blend": time_ms(lambda: [x * blurred + (1.0 - x) * d255 for x in (wl, wr)]),
+        "box_blend_kernel": time_ms(lambda: box_blend.box_blend(d255, wl, wr, **blend_kw)),
         "eye_min_max": time_ms(lambda: torch.aminmax(eye_rows.reshape(n, -1), dim=-1)),
         "eye_kernel": time_ms(lambda: warp_kernel.warp_rows_fused(eye_rows, dmin, dmax, img,
                                                                   **fkw)),
@@ -2822,8 +2898,9 @@ def kernel_times(dev, smi: str, root: str) -> None:
     import torch
     import torch.nn.functional as F
     from comfystereo_tpu_torch.kernels import _build, flash_attention as fa, gather
-    _build.build(["warp_kernel", "distance", "flash_attention", "gather", "polylines_exact",
-                  "polylines"])
+    _build.build([n for n in ("warp_kernel", "distance", "flash_attention", "gather",
+                              "polylines_exact", "polylines", "box_blend")
+                  if n in _build.SIGNATURES])
     out = {"root": root, "card": smi, "flash": {}, "gather": {}}
     for bh, nq, nk, d in FLASH_SHAPES:
         q, k, v = flash_inputs(dev, bh, nq, nk, d, seed=1)
@@ -2844,6 +2921,11 @@ def kernel_times(dev, smi: str, root: str) -> None:
     del keys, idx, planes, idx_plane, plane64, idx64
     out["polylines"] = polylines_kernel_times(dev)
     out.update(warp_distance_kernel_times(dev))
+    _, deps = fixture_frames(FRAMES, HEIGHT, WIDTH)
+    out["box_blend"] = box_blend_times(torch.from_numpy(deps).to(dev).float())
+    _, (bw, flops, _, _) = peaks(torch.cuda.get_device_name(dev))
+    out["box_blend"]["bound_ms"] = 1e3 * max(out["box_blend"]["bytes"] / bw,
+                                             out["box_blend"]["ops"] / flops)
     print(json.dumps({"kernel_times": out}), flush=True)
 
 
@@ -3108,17 +3190,19 @@ BENCH_U8_OFF = {("1_512_naive_sbs", "u8_off_oracle"): 0,
 # so it is held to at least one.
 ANY = "any"
 BENCH_LAUNCHES = {
-    "headline": {"warp_rows": 2, "edge_distances": 1},
+    "headline": {"warp_rows": 2, "edge_distances": 1, "box_blend": 1},
     "1_512_naive_sbs": {"bounded_take_along_w": ANY},
-    "2_1080p_polylines_sweep": {"polylines_exact_rows": 8, "edge_distances": 4},
-    "2_1080p_polylines_sweep/supersampled": {"polylines_scanline": 8, "edge_distances": 4},
-    "3_720p_video_hybrid_edge_tb": {"bounded_take_along_w": ANY, "edge_distances": 1},
-    "4_4k_warp_anaglyph_mask": {"warp_rows": 2, "edge_distances": 1},
+    "2_1080p_polylines_sweep": {"polylines_exact_rows": 8, "edge_distances": 4, "box_blend": 4},
+    "2_1080p_polylines_sweep/supersampled": {"polylines_scanline": 8, "edge_distances": 4,
+                                             "box_blend": 4},
+    "3_720p_video_hybrid_edge_tb": {"bounded_take_along_w": ANY, "edge_distances": 1,
+                                    "box_blend": 1},
+    "4_4k_warp_anaglyph_mask": {"warp_rows": 2, "edge_distances": 1, "box_blend": 1},
     # balance 1: the right eye is the copied source, the left eye one warp.
     "4_4k_warp_anaglyph_mask/mask_check": {"warp_rows": 1},
     # gpu_warp 2 balances x 2 eyes; the exact polylines route for
     # polylines_sharp, polylines_soft and hybrid_edge_plus, 2 x 2 each.
-    "5_video2stereo_4k_all_fills": {"warp_rows": 4, "edge_distances": 22,
+    "5_video2stereo_4k_all_fills": {"warp_rows": 4, "edge_distances": 22, "box_blend": 22,
                                     "polylines_exact_rows": 12, "bounded_take_along_w": ANY},
 }
 # gpu_warp's colours against the plain pass: check_warp's bound on the
@@ -3149,8 +3233,8 @@ def _check_bench_totals(name: str, total: dict) -> None:
 def plain_call_sites():
     """(module, name, plain version) of every kernel wrapper that the
     pipeline's ops call, as each module imports it."""
-    from comfystereo_tpu_torch.kernels import (distance, gather, polylines, polylines_exact,
-                                               warp_kernel)
+    from comfystereo_tpu_torch.kernels import (box_blend, distance, gather, polylines,
+                                               polylines_exact, warp_kernel)
     from comfystereo_tpu_torch.ops import blur, fills, warp
     from comfystereo_tpu_torch.ops import polylines as ops_polylines
     from comfystereo_tpu_torch.ops import polylines_exact as ops_exact
@@ -3161,6 +3245,7 @@ def plain_call_sites():
 
     return ((warp, "warp_rows_fused", warp_kernel.warp_rows_fused_plain),
             (blur, "edge_weights_fused", distance.edge_weights_plain),
+            (blur, "box_blend", box_blend.box_blend_plain),
             (fills, "bounded_take_along_w", take),
             (ops_polylines, "bounded_take_along_w", take),
             (ops_polylines, "polylines_scanline_fused", polylines.polylines_scanline_fused_plain),

@@ -5,11 +5,13 @@ from typing import Dict
 
 from .gather import bounded_take_along_w  # noqa: F401
 
-# The six kernels, by the name of the function each ports, and the module
-# that holds its wrapper and its `LAUNCHES` counter.
+# The kernels, by the name of the function each ports (the blur's
+# `box_blend` ports none and goes by its own), and the module that holds its
+# wrapper and its `LAUNCHES` counter.
 KERNELS = {"warp_rows": "warp_kernel", "edge_distances": "distance",
            "bounded_take_along_w": "gather", "polylines_exact_rows": "polylines_exact",
-           "polylines_scanline": "polylines", "flash_attention": "flash_attention"}
+           "polylines_scanline": "polylines", "flash_attention": "flash_attention",
+           "box_blend": "box_blend"}
 
 
 def _module(name: str):

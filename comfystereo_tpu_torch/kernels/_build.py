@@ -64,6 +64,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "flash_attention": {
         "cs_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     },
+    "box_blend": {
+        "cs_box_blend": [_P] * 5 + [_I] * 5 + [_P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

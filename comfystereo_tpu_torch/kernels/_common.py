@@ -17,13 +17,15 @@ def resident_ctas(device: torch.device, per_sm: int) -> int:
     return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def check_rows(name: str, tensors: Sequence[torch.Tensor], dtype: torch.dtype) -> None:
-    """Raise unless every tensor is 2-D [rows, width], contiguous, of `dtype`,
-    and of the first one's shape and device."""
+def check_rows(name: str, tensors: Sequence[torch.Tensor], dtype: torch.dtype,
+               dims: Sequence[str] = ("rows", "width")) -> None:
+    """Raise unless every tensor has the axes `dims` (2-D [rows, width] by
+    default), is contiguous, of `dtype`, and of the first one's shape and
+    device."""
     first = tensors[0]
     want = tuple(first.shape)
-    if len(want) != 2:
-        raise ValueError(f"{name}: expected [rows, width], got {want}")
+    if len(want) != len(dims):
+        raise ValueError(f"{name}: expected [{', '.join(dims)}], got {want}")
     for t in tensors:
         if t.dtype != dtype:
             raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")

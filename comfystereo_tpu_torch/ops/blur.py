@@ -8,11 +8,13 @@ blurs (scipy `mode='nearest'`). The box blurs are explicit sums of shifted
 slices in ascending window order, the order a sequential `reduce_window`
 adds in, so they round as the JAX package does. Every division by a scalar
 is a true division on every device (`device.true_divide`), so the card
-gives the CPU's bits. The edge weights come from the edge-distance kernel's
-fused entry, which forms the Sobel gradient, the masks, the distances and
-the weights in one pass (`kernels/distance.py:edge_weights_fused`); its
-plain version's pieces, `sobel_x`, `edge_masks` and `distance_weight`, live
-there too and are used here.
+gives the CPU's bits. Two kernels make the blur: the edge-distance kernel's
+fused entry forms the Sobel gradient, the masks, the distances and the
+weights in one pass (`kernels/distance.py:edge_weights_fused`), and the
+box-blend kernel the weights' vertical box means, the depth's horizontal box
+mean and both blends (`kernels/box_blend.py:box_blend`). Their plain
+versions' pieces, `sobel_x`, `edge_masks`, `distance_weight`, `box_blur_w`
+and `box_blur_h`, live beside them and are used here.
 
 The side blurs of the JAX package, which no pipeline path calls, are here
 too in its forms: `gaussian_blur` (reference blur_depth_map),
@@ -25,47 +27,11 @@ import torch
 
 from . import scan
 from ..device import sqrt, true_divide
+from ..kernels.box_blend import _edge_pad, box_blend
+from ..kernels.box_blend import box_blur_h, box_blur_w  # noqa: F401  (the blur's own)
 from ..kernels.distance import edge_masks, sobel_x  # noqa: F401  (the blur's own)
 from ..kernels.distance import distance_weight, edge_weights_fused
 from ..utils.profiling import span
-
-
-def _edge_pad(x: torch.Tensor, dim: int, left: int, right: int) -> torch.Tensor:
-    n = x.shape[dim]
-    first = x.narrow(dim, 0, 1)
-    last = x.narrow(dim, n - 1, 1)
-    lshape = list(x.shape)
-    lshape[dim] = left
-    rshape = list(x.shape)
-    rshape[dim] = right
-    return torch.cat([first.expand(lshape), x, last.expand(rshape)], dim=dim)
-
-
-def _window_sum(xp: torch.Tensor, dim: int, n: int, out_len: int) -> torch.Tensor:
-    """sum_{k=0}^{n-1} xp[..., k:k+out_len] along `dim`, added in ascending k."""
-    acc = xp.narrow(dim, 0, out_len)
-    for k in range(1, n):
-        acc = acc + xp.narrow(dim, k, out_len)
-    return acc
-
-
-def box_blur_w(x: torch.Tensor, n: int) -> torch.Tensor:
-    """Box mean of width n along W with edge-replicate padding; window
-    placement of scipy.ndimage.convolve1d(mode='nearest'):
-    output[i] = mean(x[i + n//2 - n + 1 : i + n//2 + 1])."""
-    if n <= 1:
-        return x
-    xp = _edge_pad(x, -1, n - 1 - n // 2, n // 2)
-    return true_divide(_window_sum(xp, -1, n, x.shape[-1]), n)
-
-
-def box_blur_h(x: torch.Tensor, radius: int) -> torch.Tensor:
-    """Box mean of width 2*radius+1 along H with edge-replicate padding."""
-    if radius <= 0:
-        return x
-    n = 2 * radius + 1
-    xp = _edge_pad(x, -2, radius, radius)
-    return true_divide(_window_sum(xp, -2, n, x.shape[-2]), n)
 
 
 def edge_distance_weight(edge_mask: torch.Tensor, mask_radius: int,
@@ -110,17 +76,11 @@ def directional_motion_blur(depth: torch.Tensor, blur_strength: float,
                                         edge_threshold=edge_threshold,
                                         mask_radius=int(blur_mask_width),
                                         falloff=_f32(falloff_exponent), height=h)
-        wl, wr = wl.reshape(depth.shape), wr.reshape(depth.shape)
-        if vert_smooth_px > 0:
-            with span("blur.box_h"):
-                wl = torch.clamp(box_blur_h(wl, int(vert_smooth_px)), 0.0, 1.0)
-                wr = torch.clamp(box_blur_h(wr, int(vert_smooth_px)), 0.0, 1.0)
         with span("blur.box_w"):
-            blurred = box_blur_w(depth, n)
-        with span("blur.blend"):
-            left = wl * blurred + (1.0 - wl) * depth
-            right = wr * blurred + (1.0 - wr) * depth
-        return left, right
+            left, right = box_blend(depth.reshape(-1, h, w).contiguous(), wl.reshape(-1, h, w),
+                                    wr.reshape(-1, h, w), taps=n,
+                                    radius=int(vert_smooth_px) if vert_smooth_px > 0 else 0)
+        return left.reshape(depth.shape), right.reshape(depth.shape)
 
 
 def gaussian_blur(depth: torch.Tensor, sigma: float) -> torch.Tensor:

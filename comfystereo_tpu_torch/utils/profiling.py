@@ -29,8 +29,10 @@ chunk path's spans, from the entry down:
   `pipeline.pack` (`pack_mode` and its clamp or divide), `pipeline.mask`
   and `pipeline.depth_outputs`;
 - `blur.directional` (`ops/blur.py:directional_motion_blur`), and in it
-  `blur.edge_weights`, `blur.box_h` (the weights' vertical smooths and
-  clamps), `blur.box_w` and `blur.blend`.
+  `blur.edge_weights` (the edge-distance kernel) and `blur.box_w` (the
+  box-blend kernel: the weights' vertical box means and clamps, the depth's
+  horizontal box mean and both blends; before the kernel, the blur's
+  `blur.box_h` and `blur.blend` spans held the first and the last of these).
 
 `utils/video.py` counts `FRAMES` through `device_chunk`, the
 `UPLOAD_BYTES` it moves to a CUDA device, the `DOWNLOAD_BYTES` it brings

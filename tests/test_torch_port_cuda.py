@@ -12,8 +12,8 @@ import pytest
 import torch
 
 from comfystereo_tpu_torch import FILL_TECHNIQUES, StereoConfig, stereo_pipeline
-from comfystereo_tpu_torch.kernels import (distance, flash_attention, gather, polylines,
-                                           polylines_exact, warp_kernel)
+from comfystereo_tpu_torch.kernels import (box_blend, distance, flash_attention, gather,
+                                           polylines, polylines_exact, warp_kernel)
 from comfystereo_tpu_torch.ops import blur as blur_ops
 from comfystereo_tpu_torch.ops import depth as depth_ops
 from comfystereo_tpu_torch.ops import polylines as polylines_ops
@@ -285,6 +285,86 @@ def test_blur_and_outputs_card_bit_equal_to_cpu(dev):
         cpu = stereo_pipeline(torch.from_numpy(imgs), torch.from_numpy(depths), cfg)
         for k in ("left_depth", "right_depth", "mask"):
             assert torch.equal(gpu[k].cpu(), cpu[k]), (fill, k)
+
+
+def _blend_inputs(shape, seed=0):
+    """Depth in 0-255 and two weight planes in [0, 1] with exact zeros and
+    ones, as the edge weights have them (host tensors)."""
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(0, 255, shape).astype(np.float32)
+    wl, wr = (np.where(rng.random(shape) < 0.4, 0.0, rng.random(shape) ** 2).astype(np.float32)
+              for _ in range(2))
+    wl[..., ::5, :] = 1.0
+    return torch.from_numpy(d), torch.from_numpy(wl), torch.from_numpy(wr)
+
+
+@pytest.mark.parametrize("shape", [(1, 5, 7), (3, 4, 3), (3, 13, 9), (1, 31, 45), (3, 21, 64),
+                                   (2, 70, 530), (1, 130, 1031)])
+@pytest.mark.parametrize("taps,radius", [(1, 0), (2, 1), (5, 6), (20, 6), (20, 0), (3, 9),
+                                         (20, 12)])
+def test_box_blend_kernel_matches_plain(dev, taps, radius, shape):
+    """The box-blend kernel against its plain version, bit for bit: H < 2r
+    + 1 and W < n, odd H and W, shapes across the kernel's strips and tiles,
+    radii in the register ring and past it; one launch a call."""
+    host = _blend_inputs(shape, seed=taps + radius)
+    card = [t.to(dev) for t in host]
+    before = box_blend.LAUNCHES
+    got = box_blend.box_blend(*card, taps=taps, radius=radius)
+    torch.cuda.synchronize()
+    assert box_blend.LAUNCHES == before + 1
+    want = box_blend.box_blend_plain(*card, taps=taps, radius=radius)
+    for g, w, c in zip(got, want, box_blend.box_blend(*host, taps=taps, radius=radius)):
+        assert torch.equal(g, w) and torch.equal(g.cpu(), c)
+
+
+def test_box_blend_kernel_at_the_cells_shape(dev):
+    """[12, 1080, 1920] with the cells' parameters (20 taps, radius 6), on
+    the edge weights of fixture depth: bit-equal to the plain version on the
+    card and to the CPU."""
+    _, depths = fixtures.batch_fixture(12, 1080, 1920)
+    d255 = torch.from_numpy(depths * 255.0)
+    wl, wr = distance.edge_weights_fused(d255.reshape(-1, 1920).to(dev), edge_threshold=20.0,
+                                         mask_radius=20, falloff=2.0, height=1080)
+    card = (d255.to(dev), wl.reshape(d255.shape), wr.reshape(d255.shape))
+    before = box_blend.LAUNCHES
+    got = box_blend.box_blend(*card, taps=20, radius=6)
+    torch.cuda.synchronize()
+    assert box_blend.LAUNCHES == before + 1
+    want = box_blend.box_blend_plain(*card, taps=20, radius=6)
+    cpu = box_blend.box_blend_plain(*(t.cpu() for t in card), taps=20, radius=6)
+    for g, w, c in zip(got, want, cpu):
+        assert torch.equal(g, w) and torch.equal(g.cpu(), c)
+
+
+def test_box_blend_kernel_takes_unaligned_planes(dev):
+    """Planes that start one float past a 16-byte boundary, and a width
+    that is no multiple of 4."""
+    host = _blend_inputs((2, 19, 77), seed=4)
+    card = []
+    for t in host:
+        buf = torch.empty(t.numel() + 1, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        card.append(view)
+    assert card[0].data_ptr() % 16 == 4
+    got = box_blend.box_blend(*card, taps=20, radius=6)
+    for g, c in zip(got, box_blend.box_blend(*host, taps=20, radius=6)):
+        assert torch.equal(g.cpu(), c)
+
+
+def test_box_blend_kernel_rejects_what_it_does_not_take(dev):
+    """A window over MAX_TAPS raises before any launch; non-contiguous
+    planes raise."""
+    d, wl, wr = (t.to(dev) for t in _blend_inputs((1, 8, 16)))
+    before = box_blend.LAUNCHES
+    with pytest.raises(ValueError, match="taps"):
+        box_blend.box_blend(d, wl, wr, taps=box_blend.MAX_TAPS + 1, radius=0)
+    with pytest.raises(ValueError, match="contiguous"):
+        box_blend.box_blend(d[..., ::2], wl[..., ::2], wr[..., ::2], taps=5, radius=1)
+    assert box_blend.LAUNCHES == before
+    got = box_blend.box_blend(d, wl, wr, taps=box_blend.MAX_TAPS, radius=0)
+    want = box_blend.box_blend_plain(d, wl, wr, taps=box_blend.MAX_TAPS, radius=0)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_pipeline_on_card_matches_cpu(dev):
@@ -778,7 +858,7 @@ def test_sharded_chunk_on_one_card_bit_equal(dev, fill, mesh_shape):
     imgs, depths = fixtures.batch_fixture(4, H, W)
     img, dep = torch.from_numpy(imgs).to(dev), torch.from_numpy(depths).to(dev)
     cfg = StereoConfig(fill_technique=fill, modes=("top-bottom", "left-right"))
-    mods = (distance, gather, polylines, polylines_exact, warp_kernel)
+    mods = (distance, gather, polylines, polylines_exact, warp_kernel, box_blend)
     before = [m.LAUNCHES for m in mods]
     want = stereo_pipeline(img, dep, cfg)
     torch.cuda.synchronize()
@@ -1140,10 +1220,25 @@ def test_device_chunk_results_held_at_once_stay_their_own(dev):
         assert torch.equal(out, _chunk_on_card(bgr, dep, cfg, dev))
 
 
+@pytest.mark.parametrize("fill", ["gpu_warp", "polylines_sharp"])
+def test_device_chunk_launches_the_box_blend_once(dev, fill):
+    """Each chunk with the depth blur on launches the box-blend kernel once
+    and the edge-distance kernel once."""
+    from comfystereo_tpu_torch.utils import video
+    bgr, dep = _chunk_u8()
+    cfg = StereoConfig(fill_technique=fill, batch_size=2)
+    for k in (1, 2):
+        before = (box_blend.LAUNCHES, distance.LAUNCHES)
+        video.device_chunk(bgr, dep, cfg, device=dev)
+        assert (box_blend.LAUNCHES, distance.LAUNCHES) == (before[0] + 1, before[1] + 1), k
+
+
 @pytest.mark.parametrize("fill,homes", [
     ("gpu_warp", {"edge_distances_kernel": ("blur.edge_weights", 1),
+                  "box_blend_kernel": ("blur.box_w", 1),
                   "warp_rows_kernel": ("pipeline.eye", 2)}),
     ("polylines_sharp", {"edge_distances_kernel": ("blur.edge_weights", 1),
+                         "box_blend_kernel": ("blur.box_w", 1),
                          "polylines_exact_kernel": ("pipeline.eye", 2)})])
 def test_traced_chunk_puts_named_kernels_under_their_spans(dev, fill, homes, tmp_path):
     """On a traced chunk each named kernel's launch call (paired by the

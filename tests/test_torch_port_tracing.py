@@ -37,8 +37,7 @@ CHUNK_TREE = ("video.device_chunk", (
     *_leaves("video.upload", "video.to_float"),
     ("pipeline.stereo_pipeline", (
         *_leaves("pipeline.depth255"),
-        ("blur.directional", _leaves("blur.edge_weights", "blur.box_h", "blur.box_w",
-                                     "blur.blend")),
+        ("blur.directional", _leaves("blur.edge_weights", "blur.box_w")),
         *_leaves("pipeline.eye_source", "pipeline.eye", "pipeline.eye", "pipeline.pack",
                  "pipeline.mask", "pipeline.depth_outputs"))),
     *_leaves("video.to_u8", "video.download")))

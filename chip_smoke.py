@@ -152,21 +152,20 @@ any failure ends the run with a non-zero exit code:
    the fused entries their routes launch. Also the sharded gpu_warp chunk
    beside the unsharded one in turns, on both meshes, and the backward-warp
    family's ms per 1080p B=12 chunk;
-6. the port's benchmark entry (`comfystereo_tpu_torch/bench.py`) at full
-   size: the headline (1080p B=4 gpu_warp) and the five BASELINE configs
-   (512x512 naive; the 1080p polylines sweep, exact and supersampled; 720p
-   B=12 hybrid_edge top-bottom; 4K gpu_warp anaglyph with its mask check;
-   4K B=2 every fill at balance 0 and 0.5), each JSON line as the bench
-   prints it. The counters are set to 0 just before each line and read just
-   after: every kernel its fills need launched and no other, and each
-   line's launches of one pass exactly `BENCH_LAUNCHES`. Each line's pass
-   is then run again with every kernel's plain version in its place, on
-   the same card tensors at the line's shapes (4K included), and must give
-   the same outputs (gpu_warp's colours within 1e-5, all else bit-equal).
-   Config 1's SSIM, config 2's exact-mode SSIM and config 4's mask parity,
-   unrounded, reach the JAX bench's values for the same inputs on the CPU
-   (`BENCH_FLOORS`), and configs 1 and 2 exact differ from the oracle in
-   no more uint8 values than JAX's pair (`BENCH_U8_OFF`: none).
+6. the BASELINE lines at full size (`BASELINE_LINES`): the headline
+   (1080p B=4 gpu_warp) and BASELINE.md's five (512x512 naive; the 1080p
+   polylines sweep, exact and supersampled; 720p B=12 hybrid_edge
+   top-bottom; 4K gpu_warp anaglyph with its mask check; 4K B=2 every fill
+   at balance 0 and 0.5), driven through stereo_pipeline. The counters are
+   set to 0 just before each configuration and read just after: each
+   line's launches of one pass exactly `BENCH_LAUNCHES`, and over the
+   line's whole run every kernel its fills need launched and no other.
+   Configs 1 and 2 (exact) differ from the CPU oracle's stereo pair in no
+   uint8 value, and config 4's gap mask equals the oracle's, at the
+   oracle's reduced width. Each line's pass is then run again with every
+   kernel's plain version in its place, on the same card tensors at the
+   line's shapes (4K included), and must give the same outputs (gpu_warp's
+   colours within 1e-5, all else bit-equal).
 
 `--kernel-times` only builds and times the flash kernel (beside
 scaled_dot_product_attention), the gather (beside torch.gather), both
@@ -208,12 +207,6 @@ LEGACY_FILLS = ("polylines_sharp", "polylines_soft", "hybrid_edge_plus")
 # card vs CPU in phase 4: the 29% measured there, with room to spare.
 HYBRID_SHARE = 0.35
 
-# Published peaks (NVIDIA data sheets, SXM parts, at the full power limit):
-# device-memory bytes/s, float32 FLOP/s outside the tensor cores, dense bf16
-# tensor-core FLOP/s, and exponentials/s of the special function units (16
-# per SM per clock, 132 SMs at 1.83 GHz: about 3.9e12).
-_PEAKS = {"H100": (3.35e12, 67e12, 989e12, 3.9e12),
-          "H200": (4.8e12, 67e12, 989e12, 3.9e12)}
 # Flash attention shapes [BH, Nq, Nk, D] of the SD 1.5 UNet at 512x512 in
 # bf16 with CFG (batch 2): level 0 (the timed one), level 1, BN 'bi'.
 FLASH_SHAPES = ((16, 4096, 4096, 40), (16, 1024, 1024, 80), (16, 4096, 8192, 40))
@@ -246,11 +239,13 @@ def nvidia_smi() -> str:
 
 
 def peaks(name: str):
-    """(bytes/s, float32 FLOP/s, bf16 tensor FLOP/s, exponentials/s) of the
-    card named `name`; an unknown card is measured against the H100 SXM and
-    says so."""
-    key = "H200" if "H200" in name else "H100"
-    return key, _PEAKS[key]
+    """(bytes/s, float32 FLOP/s, bf16 tensor FLOP/s, exponentials/s): the
+    H100 SXM's published peaks, from `stereo_bench/counts/peaks.py`. Every
+    card is measured against them; a card named otherwise is said to be."""
+    from stereo_bench.counts import peaks as pk
+    if "H100" not in name:
+        log(f"{name} is not an H100: its times are measured against the H100 SXM's peaks")
+    return pk.BYTES_PER_S, pk.FLOP_PER_S, pk.TENSOR_FLOP_PER_S, pk.EXP_PER_S
 
 
 def sync() -> None:
@@ -2129,7 +2124,7 @@ def diffusion_times(dev, sd, launches: int, err: float, smi: str, name: str):
     from comfystereo_tpu_torch.diffusion import sd_pipeline
     from comfystereo_tpu_torch.kernels import flash_attention as fa
 
-    key, pk = peaks(name)
+    pk = peaks(name)
     rows = []
     for bh, nq, nk, d in FLASH_SHAPES:
         q, k, v = flash_inputs(dev, bh, nq, nk, d, seed=1)
@@ -2142,7 +2137,7 @@ def diffusion_times(dev, sd, launches: int, err: float, smi: str, name: str):
         bound, by, what = flash_bound(bh, nq, nk, d, pk)
         rows.append((ms, plain_ms, lib_ms, bound, by))
         log(f"  flash_attention {(bh, nq, nk, d)}: {ms:.4f} ms/launch, bound {bound:.4f} ms "
-            f"({what}, {key} peaks; {100 * bound / ms:.1f}% of it reached), plain "
+            f"({what}, H100 peaks; {100 * bound / ms:.1f}% of it reached), plain "
             f"{plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms:.4f} ms [{smi}]")
         del q, k, v, q4, k4, v4
         torch.cuda.empty_cache()
@@ -2348,7 +2343,7 @@ def phase_times(dev, launches, errs, smi: str, name: str,
     from comfystereo_tpu_torch.kernels import (distance, gather, polylines, polylines_exact,
                                                warp_kernel)
 
-    key, (bw, flops, _, _) = peaks(name)
+    bw, flops, _, _ = peaks(name)
     imgs, deps = fixture_frames(n, h, w)
     image = torch.from_numpy(imgs).to(dev).float() / 255.0
     depth255 = torch.from_numpy(deps).to(dev).float()
@@ -2402,7 +2397,7 @@ def phase_times(dev, launches, errs, smi: str, name: str,
     for k in kernels:
         lib = "" if k["library_ms"] is None else f", library {k['library_ms']:.4f} ms"
         log(f"  {k['name']}: {k['ms']:.4f} ms/launch, bound {k['bound_ms']:.4f} ms "
-            f"({k['bound_by']}, {key} peaks), plain {k['plain_ms']:.3f} ms{lib}, "
+            f"({k['bound_by']}, H100 peaks), plain {k['plain_ms']:.3f} ms{lib}, "
             f"{k['launches']} launches per {n}-frame chunk "
             f"({k['launches'] / n:.4f} per frame) [{smi}]")
     for k in kernels:
@@ -2923,7 +2918,7 @@ def kernel_times(dev, smi: str, root: str) -> None:
     out.update(warp_distance_kernel_times(dev))
     _, deps = fixture_frames(FRAMES, HEIGHT, WIDTH)
     out["box_blend"] = box_blend_times(torch.from_numpy(deps).to(dev).float())
-    _, (bw, flops, _, _) = peaks(torch.cuda.get_device_name(dev))
+    bw, flops, _, _ = peaks(torch.cuda.get_device_name(dev))
     out["box_blend"]["bound_ms"] = 1e3 * max(out["box_blend"]["bytes"] / bw,
                                              out["box_blend"]["ops"] / flops)
     print(json.dumps({"kernel_times": out}), flush=True)
@@ -3167,27 +3162,46 @@ def phase_dryrun_and_vr_nodes(dev, smi: str):
     return dict(report, vr_status_cuda=cuda_line)
 
 
-# --- phase 6: the port's benchmark entry ------------------------------------
+# --- phase 6: the BASELINE lines at full size -------------------------------
 
-# The repository's bench.py (JAX on the CPU) through its own `_validate` and
-# config 4's mask check, on the same inputs at the same oracle widths (512;
-# config 2's exact mode at 256): `python tests/torch_bench_floors.py`
-# (JAX 0.9.0). The port's accuracy on the card must reach these unrounded
-# values (its lines print them rounded to 5 and 6 decimals, as bench.py's
-# do; one uint8 value one LSB off moves either SSIM by at least 2.5e-9 at
-# these widths, the same script), and its stereo pair may differ from the
-# oracle's in no more uint8 values than JAX's does (none, for both).
-BENCH_ORACLE_WIDTH = 512
-BENCH_FLOORS = {("1_512_naive_sbs", "fill_region_ssim"): 0.9999999999992818,
-                ("2_1080p_polylines_sweep", "exact_mode_ssim"): 0.999999999998379,
-                ("4_4k_warp_anaglyph_mask", "mask_exact_parity"): 1.0}
-BENCH_U8_OFF = {("1_512_naive_sbs", "u8_off_oracle"): 0,
-                ("2_1080p_polylines_sweep", "exact_mode_u8_off_oracle"): 0}
-# Launches of one pass of each bench line (one pipeline call; config 2 its
-# four sweep points, config 5 its 22 fill x balance calls): a number is
-# exact, ANY means at least one, and a kernel not listed must not launch.
-# The gather fills (GATHER_FILLS) launch it once per pass of their sorts,
-# so it is held to at least one.
+# BASELINE.md's five lines and the headline (the Stereo Image node's defaults
+# at 1080p, B=4): each line's (height, width, frames per call) and the
+# pipeline configurations of one pass, as StereoConfig fields, in order.
+BASELINE_SWEEP = ((2.0, 0.5), (4.5, 0.5), (4.5, 0.0), (7.0, 1.0))
+BASELINE_LINES = {
+    "headline": ((1080, 1920, 4), [dict(fill_technique="gpu_warp", modes=("left-right",))]),
+    "1_512_naive_sbs": ((512, 512, 1), [dict(fill_technique="naive", modes=("left-right",),
+                                             depth_map_blur=False)]),
+    # The sweep with the exact renderer, then supersampled.
+    "2_1080p_polylines_sweep": ((1080, 1920, 1), [
+        dict(fill_technique="polylines_sharp", divergence=dv, convergence_point=cv,
+             modes=("left-right",), depth_map_blur=True, polylines_exact=exact)
+        for exact in (True, False) for dv, cv in BASELINE_SWEEP]),
+    "3_720p_video_hybrid_edge_tb": ((720, 1280, 12), [dict(
+        fill_technique="hybrid_edge", modes=("top-bottom",), depth_map_blur=True)]),
+    "4_4k_warp_anaglyph_mask": ((2160, 3840, 1), [dict(
+        fill_technique="gpu_warp", modes=("red-cyan-anaglyph",), depth_map_blur=True)]),
+    "5_video2stereo_4k_all_fills": ((2160, 3840, 2), [
+        dict(fill_technique=t, stereo_balance=b, modes=("left-right",), depth_map_blur=True)
+        for t in ("gpu_warp",) + FILLS for b in (0.0, 0.5)]),
+}
+# Config 4's mask check: the left eye's gap mask with the blur off and all
+# the divergence on it (balance 1, so the right eye is the copied source).
+MASK_CHECK = dict(fill_technique="gpu_warp", modes=("left-only",), depth_map_blur=False,
+                  stereo_balance=1.0)
+# The CPU oracle (interpreted Python) runs at a reduced width: the mask check
+# at ORACLE_WIDTH, and for the lines below the configurations at those
+# indices (config 2's exact sweep) at that width, whose stereo pairs must
+# differ from the oracle's in no uint8 value. The JAX bench's SSIM floors
+# against the oracle (1 - 7e-13 and 1 - 1.6e-12) measured only the last bit
+# of the pairs' /255, so no uint8 value off is the stronger check.
+ORACLE_WIDTH = 512
+ORACLE_PAIRS = {"1_512_naive_sbs": ((0,), 512), "2_1080p_polylines_sweep": ((0, 1, 2, 3), 256)}
+# Launches of one pass of each line, one counter per configuration (config
+# 2's exact and supersampled halves and config 4's mask check apart; config
+# 5 its 22 fill x balance calls): a number is exact, ANY means at least one,
+# and a kernel not listed must not launch. The gather fills (GATHER_FILLS)
+# launch it once per pass of their sorts, so it is held to at least one.
 ANY = "any"
 BENCH_LAUNCHES = {
     "headline": {"warp_rows": 2, "edge_distances": 1, "box_blend": 1},
@@ -3210,6 +3224,93 @@ BENCH_LAUNCHES = {
 BENCH_WARP_ATOL = 1e-5
 
 
+def baseline_inputs(name: str, h: int, w: int, batch: int):
+    """A line's input: `batch` frames [B, H, W, 3] in 0-1 and depths [B, H,
+    W] in 0-255, frame i the fixture rolled by 8 i columns (16 i in config
+    5)."""
+    import numpy as np
+    from comfystereo_tpu_torch.utils import fixtures
+    img = fixtures.create_test_image(h, w).astype(np.float32) / 255.0
+    dm = fixtures.create_depth_map(h, w).astype(np.float32)
+    shift = 16 if name.startswith("5_") else 8
+    return (np.stack([np.roll(img, shift * i, axis=1) for i in range(batch)]),
+            np.stack([np.roll(dm, shift * i, axis=1) for i in range(batch)]))
+
+
+def scaled_inputs(img01, depth, width: int):
+    """A frame and its depth downscaled to the oracle's width (bench.py's
+    `_scaled_inputs`)."""
+    import numpy as np
+    from PIL import Image
+    h, w = depth.shape
+    nh = max(32, int(round(h * width / w)))
+    im = Image.fromarray((img01 * 255).astype(np.uint8)).resize((width, nh), Image.BILINEAR)
+    dm = Image.fromarray(depth.astype(np.float32), mode="F").resize((width, nh),
+                                                                    Image.BILINEAR)
+    return np.asarray(im, np.float32) / 255.0, np.asarray(dm, np.float32)
+
+
+def oracle_sbs(img01, depth255, cfg, oracle):
+    """The CPU oracle's stereo pair (first mode) of one frame, uint8 / 255
+    (bench.py's `_oracle_sbs`)."""
+    import numpy as np
+    d = depth255
+    if cfg.depth_map_blur and cfg.depth_blur_strength > 0:
+        ld, rd = oracle.directional_motion_blur(
+            d, cfg.depth_blur_strength, cfg.depth_blur_edge_threshold,
+            cfg.depth_blur_strength, cfg.depth_blur_falloff, cfg.depth_blur_vert_smooth)
+    else:
+        ld = rd = d
+    img_u8 = np.trunc(np.clip(img01 * 255.0, 0, 255)).astype(np.float32)
+    divl, divr = cfg.eye_divergences()
+    left = img_u8 if divl < 0.001 else oracle.dispatch(
+        img_u8, ld, +divl, -cfg.separation, cfg.stereo_offset_exponent,
+        cfg.fill_technique, cfg.convergence_point)
+    right = img_u8 if divr < 0.001 else oracle.dispatch(
+        img_u8, rd, -divr, +cfg.separation, cfg.stereo_offset_exponent,
+        cfg.fill_technique, cfg.convergence_point)
+    axis = 0 if cfg.modes[0] == "top-bottom" else 1
+    return np.concatenate([left, right], axis=axis) / 255.0
+
+
+def _counted(fn, *args):
+    """(fn(*args), the launches of each kernel during it)."""
+    reset_launches()
+    out = fn(*args)
+    return out, read_launches()
+
+
+def oracle_off(cfg, img01, depth, width: int, dev, oracle):
+    """The port's stereo pair (first mode) of one frame downscaled to `width`,
+    run on `dev`, on the host; and how many of its uint8 values differ from
+    the oracle's pair of the same inputs."""
+    import numpy as np
+    import torch
+    from comfystereo_tpu_torch import stereo_pipeline
+    simg, sdm = scaled_inputs(img01, depth, width)
+    out = stereo_pipeline(torch.tensor(simg[None], device=dev),
+                          torch.tensor(sdm[None], device=dev), cfg)
+    mine = out["stereo"][0][0].float().cpu().numpy()
+    want = oracle_sbs(simg, sdm, cfg, oracle)
+    return mine, int((np.round(mine * 255) != np.round(want * 255)).sum())
+
+
+def mask_gaps(img01, depth, width: int, dev, oracle):
+    """Config 4's mask check of one frame downscaled to `width`: the port's
+    gap mask (`MASK_CHECK`, run on `dev`) as booleans on the host, and the
+    oracle's z-buffer gaps of the same warp."""
+    import torch
+    from comfystereo_tpu_torch import StereoConfig, stereo_pipeline
+    cfg = StereoConfig(**MASK_CHECK)
+    simg, sdm = scaled_inputs(img01, depth, width)
+    out = stereo_pipeline(torch.tensor(simg[None], device=dev),
+                          torch.tensor(sdm[None], device=dev), cfg)
+    divl = cfg.eye_divergences()[0] / 100.0 * simg.shape[1]
+    _, gaps = oracle.forward_warp(simg, sdm, +divl, 0.0, cfg.stereo_offset_exponent,
+                                  cfg.convergence_point)
+    return out["mask"][0].cpu().numpy() > 0.5, gaps
+
+
 def _check_bench_launches(label: str, got: dict) -> None:
     want = BENCH_LAUNCHES[label]
     for k, n in got.items():
@@ -3220,7 +3321,7 @@ def _check_bench_launches(label: str, got: dict) -> None:
 
 
 def _check_bench_totals(name: str, total: dict) -> None:
-    """Over the whole run of a line (timing and accuracy calls), every
+    """Over the whole run of a line (its pass and the oracle's checks), every
     kernel its fills need launched and no other."""
     needed = {k for key, want in BENCH_LAUNCHES.items() if key.split("/")[0] == name
               for k in want}
@@ -3330,62 +3431,57 @@ def check_bench_plain(label: str, cfgs, imgs, dms, dev) -> float:
     return worst
 
 
-def phase_bench(dev, smi: str) -> dict:
-    """`python -m comfystereo_tpu_torch.bench --full` on the card at full
-    size: the headline (1080p B=4 gpu_warp) and the five BASELINE configs
-    (4K included), each line printed as the bench prints it. Every launch
-    counter is set to 0 just before each of them and read just after: each
-    must have launched the kernels its fills need (none other), and each
-    line's launches of one pass must be `BENCH_LAUNCHES`'. Then each line's
-    pass is held against its plain pass at the line's own shapes
-    (`check_bench_plain`). The accuracy must reach `BENCH_FLOORS` and
-    `BENCH_U8_OFF`, the JAX bench's own values for the same inputs on the
-    CPU, unrounded."""
-    from comfystereo_tpu_torch import bench
+def phase_baseline_lines(dev, smi: str) -> dict:
+    """The BASELINE lines at full size on the card (4K included). Each
+    line's pass runs with the launch counters set to 0 before each
+    configuration, and each label's launches must be `BENCH_LAUNCHES`'.
+    Configs 1 and 2 (the exact sweep) may differ from the CPU oracle's
+    pair in no uint8 value at the oracle's width (`ORACLE_PAIRS`), and
+    config 4's gap mask must equal the oracle's (`mask_gaps`). Over the
+    line's whole run every kernel its fills need launched and no other. Then
+    each line's pass is held against its plain pass on the same card tensors
+    (`check_bench_plain`)."""
+    import collections
+    import torch
+    from comfystereo_tpu_torch import StereoConfig, stereo_pipeline
     t0 = time.perf_counter()
-    oracle = bench.load_oracle()
-    label = bench.card(dev)
-    if label != smi:
-        raise AssertionError(f"phase 6: the bench reads the card as {label!r}, not {smi!r}")
-    reset_launches()
-    head = bench.run_headline(dev)
-    totals = {"headline": read_launches()}
-    _check_bench_launches("headline", head["launches"])
-    plain_errs = {"headline": check_bench_plain("headline", *bench.headline_case(
-        *bench.HEADLINE_SHAPE), dev)}
-    by = {"headline": head}
-    for n, fn in bench.CONFIGS.items():
-        h, w, batch = bench.FULL_SHAPES[n]
-        reset_launches()
-        r = dict(fn(dev, oracle, BENCH_ORACLE_WIDTH, h, w, batch), card=label)
-        total = read_launches()
-        print(json.dumps(bench.printed(r)), flush=True)
-        name = r["config"]
-        _check_bench_launches(name, r["launches"])
-        if "launches_supersampled" in r:
-            _check_bench_launches(name + "/supersampled", r["launches_supersampled"])
-        if "mask_check_launches" in r:
-            _check_bench_launches(name + "/mask_check", r["mask_check_launches"])
-        by[name], totals[name] = r, total
-        plain_errs[name] = check_bench_plain(name, *bench.config_cases(n, h, w, batch), dev)
-    for name, total in totals.items():
-        _check_bench_totals(name, total)
-    for (name, key), floor in BENCH_FLOORS.items():
-        if not by[name][key] >= floor:
-            raise AssertionError(f"phase 6 {name}: {key} {by[name][key]!r} below the JAX "
-                                 f"bench's {floor!r} on the same inputs")
-    for (name, key), most in BENCH_U8_OFF.items():
-        if not by[name][key] <= most:
-            raise AssertionError(f"phase 6 {name}: {by[name][key]} uint8 values differ from "
-                                 f"the oracle's ({key}), JAX's bench {most}")
-    accuracy = {f"{name}/{key}": by[name][key] for name, key in (*BENCH_FLOORS, *BENCH_U8_OFF)}
+    oracle = tests_module("oracle/stereo_oracle")
+    totals, plain_errs = {}, {}
+    for name, ((h, w, batch), fields) in BASELINE_LINES.items():
+        cfgs = [StereoConfig(**f) for f in fields]
+        imgs, dms = baseline_inputs(name, h, w, batch)
+        x, d = (torch.from_numpy(a).to(dev) for a in (imgs, dms))
+        launches = collections.defaultdict(collections.Counter)
+        for cfg in cfgs:
+            label = name if cfg.polylines_exact else name + "/supersampled"
+            launches[label].update(_counted(stereo_pipeline, x, d, cfg)[1])
+        del x, d
+        total = collections.Counter()
+        indices, width = ORACLE_PAIRS.get(name, ((), 0))
+        for i in indices:
+            (_, off), got = _counted(oracle_off, cfgs[i], imgs[0], dms[0], width, dev, oracle)
+            total.update(got)
+            if off:
+                raise AssertionError(f"phase 6 {name}: {off} uint8 values of configuration "
+                                     f"{i} at width {width} differ from the oracle's")
+        if name.startswith("4_"):
+            (mask, gaps), got = _counted(mask_gaps, imgs[0], dms[0], ORACLE_WIDTH, dev, oracle)
+            launches[name + "/mask_check"].update(got)
+            if (mask != gaps).any():
+                raise AssertionError(f"phase 6 {name}: the gap mask differs from the oracle's "
+                                     f"in {int((mask != gaps).sum())} of {gaps.size} pixels")
+        for label, got in launches.items():
+            _check_bench_launches(label, dict(got))
+            total.update(got)
+        totals[name] = dict(total)
+        _check_bench_totals(name, totals[name])
+        plain_errs[name] = check_bench_plain(name, cfgs, imgs, dms, dev)
     seconds = time.perf_counter() - t0
-    log(f"phase 6 ok: the bench's headline and five configs on {smi} in {seconds:.1f} s; "
+    log(f"phase 6 ok: the headline and the five BASELINE lines on {smi} in {seconds:.1f} s; "
         f"each line's pass equal to its plain pass (gpu_warp colours max |err| by line "
-        f"{json.dumps(plain_errs)}); accuracy unrounded {json.dumps(accuracy)}; launches by "
-        f"line {json.dumps(totals)}")
-    return {"seconds": round(seconds, 1), "launches": totals, "plain_max_abs_err": plain_errs,
-            "accuracy": accuracy}
+        f"{json.dumps(plain_errs)}); configs 1 and 2 no uint8 value off the oracle, config "
+        f"4's gap mask equal to the oracle's; launches by line {json.dumps(totals)}")
+    return {"seconds": round(seconds, 1), "launches": totals, "plain_max_abs_err": plain_errs}
 
 
 def main() -> int:
@@ -3460,7 +3556,7 @@ def main() -> int:
     pipeline["stereodiffusion_standard"] = dict(
         std_times, runs=std["runs"], null_text_grad=std["grad"], card_vs_cpu=std_cpu_errs)
     log(f"phase 5 ok: StereoDiffusion times on {name} ({smi})")
-    pipeline["bench"] = phase_bench(dev, smi)
+    pipeline["baseline_lines"] = phase_baseline_lines(dev, smi)
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -20,7 +20,7 @@ assert len(names) >= 15, names
 for need in ("parallel.sharding", "parallel.pipeline", "parallel.data_parallel",
              "graft_entry", "native", "viewer.core", "viewer.headless",
              "nodes.native_nodes", "ops.backward_warp", "utils.profiling",
-             "utils.tensors", "bench"):
+             "utils.tensors"):
     assert "comfystereo_tpu_torch." + need in names, need
 print("ok", len(names))
 """

@@ -1,5 +1,7 @@
 """Port's stereo_pipeline (plain versions on the CPU) vs the JAX package's
-stereo_pipeline, for gpu_warp and for the ten CPU-parity fills.
+stereo_pipeline, for gpu_warp and for the ten CPU-parity fills, and for
+each configuration of BASELINE lines 1-4 as chip_smoke.py's phase 6 runs
+them, against the CPU oracle too.
 
 Stated tolerances, gpu_warp:
 - blur off: mask bit-equal, colours atol 1e-5 (measured: bit-equal);
@@ -15,9 +17,12 @@ import numpy as np
 import pytest
 import torch
 
+import bench as jbench
+import chip_smoke as smoke
 import comfystereo_tpu as cs
 from comfystereo_tpu.utils import fixtures
 import comfystereo_tpu_torch as ct
+from tests.oracle import stereo_oracle as oracle
 
 B, H, W = 2, 48, 64
 MODES3 = ("left-right", "top-bottom", "red-cyan-anaglyph")
@@ -52,10 +57,10 @@ def test_pipeline_blur_off_matches(color_dtype):
                                    atol=1e-5)
 
 
-@pytest.mark.parametrize("seed", [0, 5])
-def test_pipeline_default_config_matches(seed):
+@pytest.mark.parametrize("seed, balance", [(0, 0.0), (5, 0.0), (0, 0.5)])
+def test_pipeline_default_config_matches(seed, balance):
     imgs, depths = _inputs(seed)
-    jcfg = cs.StereoConfig(modes=MODES3)
+    jcfg = cs.StereoConfig(modes=MODES3, stereo_balance=balance)
     assert jcfg.depth_map_blur
     jo, to = _run_both(jcfg, imgs, depths)
     for k in ("left_depth", "right_depth"):
@@ -111,10 +116,11 @@ _HYBRID = ("hybrid_edge", "hybrid_edge_plus")
 _SUPERSAMPLED = ("polylines_soft", "polylines_sharp", "hybrid_edge_plus")
 
 
-def _check_fill_matches_jax(fill, polylines_exact, blur=True):
+def _check_fill_matches_jax(fill, polylines_exact, blur=True, balance=0.0):
     imgs, depths = _inputs(seed=1)
     jcfg = cs.StereoConfig(modes=MODES3, fill_technique=fill,
-                           polylines_exact=polylines_exact, depth_map_blur=blur)
+                           polylines_exact=polylines_exact, depth_map_blur=blur,
+                           stereo_balance=balance)
     jo, to = _run_both(jcfg, imgs, depths)
     # The supersampled renderer's sample tests can flip on the blurred
     # depth's last-bit differences from JAX (depth outputs within 1e-5
@@ -157,14 +163,16 @@ def test_unported_fill_raises(fill):
         _check_fill_matches_jax(fill, polylines_exact=False)
 
 
+@pytest.mark.parametrize("balance", [0.0, 0.5])
 @pytest.mark.parametrize("fill", FILLS)
-def test_fill_pipeline_matches_jax(fill):
-    """The uint8 branch with the depth blur on: stereo outputs bit-equal in
-    uint8 (x255) and the black-pixel mask bit-equal to JAX (measured), the
-    hybrid fills within 1 LSB on at most 1% of values and their masks on at
-    most 0.1% of pixels. The final /255 is a true division here; jitted XLA
-    multiplies by 1/255 instead, 1 ulp apart in half the values."""
-    _check_fill_matches_jax(fill, polylines_exact=True)
+def test_fill_pipeline_matches_jax(fill, balance):
+    """The uint8 branch with the depth blur on, at both of BASELINE config
+    5's balances: stereo outputs bit-equal in uint8 (x255) and the
+    black-pixel mask bit-equal to JAX (measured), the hybrid fills within 1
+    LSB on at most 1% of values and their masks on at most 0.1% of pixels.
+    The final /255 is a true division here; jitted XLA multiplies by 1/255
+    instead, 1 ulp apart in half the values."""
+    _check_fill_matches_jax(fill, polylines_exact=True, balance=balance)
 
 
 def test_color_dtype_is_for_gpu_warp_only():
@@ -178,3 +186,55 @@ def test_color_dtype_is_for_gpu_warp_only():
     assert outs[1]["stereo"][0].dtype == torch.float32
     assert torch.equal(outs[0]["stereo"][0], outs[1]["stereo"][0])
     assert torch.equal(outs[0]["mask"], outs[1]["mask"])
+
+
+# Each configuration of BASELINE lines 1-4 in chip_smoke.py's phase 6, and
+# config 4's mask check.
+BASELINE_CASES = [(name, i) for name, (_, fields) in smoke.BASELINE_LINES.items()
+                  if name[0] in "1234" for i in range(len(fields))]
+BASELINE_CASES.append(("4_4k_warp_anaglyph_mask", "mask_check"))
+ORACLE_WIDTH = 64
+
+
+@pytest.mark.parametrize("name, i", BASELINE_CASES,
+                         ids=[f"config{name[0]}-{i}" for name, i in BASELINE_CASES])
+def test_baseline_config_matches_jax(name, i):
+    """A 96x160 frame of the line's input at the oracle's width 64, through
+    phase 6's own oracle checks (on the CPU) and through the JAX package
+    with bench.py's downscale and oracle pair. The fills' pairs equal JAX's
+    in uint8 (hybrid_edge within 1 LSB) and differ from the oracle's in as
+    many uint8 values as JAX's (hybrid_edge give or take its values off
+    JAX's); gpu_warp's, truncated to uint8, are within
+    1 LSB of JAX's on under 5% of values (`test_video_fixture.py`). The mask
+    check's gap mask equals JAX's, and so agrees with the oracle's gaps in
+    as many pixels."""
+    img, dm = (a[0] for a in smoke.baseline_inputs(name, 96, 160, 1))
+    simg, sdm = jbench._scaled_inputs(img, dm, ORACLE_WIDTH)
+    x, d = jnp.asarray(simg[None]), jnp.asarray(sdm[None])
+    cpu = torch.device("cpu")
+    if i == "mask_check":
+        mask, gaps = smoke.mask_gaps(img, dm, ORACLE_WIDTH, cpu, oracle)
+        jcfg = cs.StereoConfig(**smoke.MASK_CHECK)
+        jmask = np.asarray(cs.stereo_pipeline(x, d, jcfg)["mask"][0]) > 0.5
+        divl = jcfg.eye_divergences()[0] / 100.0 * simg.shape[1]
+        _, jgaps = oracle.forward_warp(simg, sdm, +divl, 0.0, jcfg.stereo_offset_exponent,
+                                       jcfg.convergence_point)
+        np.testing.assert_array_equal(mask, jmask)
+        assert (mask == gaps).mean() == (jmask == jgaps).mean()
+        return
+    fields = smoke.BASELINE_LINES[name][1][i]
+    jcfg = cs.StereoConfig(**fields)
+    j = np.asarray(cs.stereo_pipeline(x, d, jcfg)["stereo"][0][0])
+    if jcfg.fill_technique == "gpu_warp":
+        t = ct.stereo_pipeline(torch.tensor(simg[None]), torch.tensor(sdm[None]),
+                               ct.StereoConfig(**fields))["stereo"][0][0].numpy()
+        diff = np.abs(np.trunc(np.clip(j * 255, 0, 255)) - np.trunc(np.clip(t * 255, 0, 255)))
+        assert diff.max() <= 1 and (diff > 0).mean() < 0.05
+        return
+    t, off = smoke.oracle_off(ct.StereoConfig(**fields), img, dm, ORACLE_WIDTH, cpu, oracle)
+    lsb = np.abs(np.round(j * 255) - np.round(t * 255))
+    assert lsb.max() <= (1 if jcfg.fill_technique == "hybrid_edge" else 0)
+    want = np.round(jbench._oracle_sbs(simg, sdm, jcfg, oracle) * 255)
+    # Equal counts where the pairs are bit-equal; each value hybrid_edge
+    # has 1 LSB off JAX's may move the count by one.
+    assert abs(off - int((np.round(j * 255) != want).sum())) <= int((lsb > 0).sum())

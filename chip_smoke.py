@@ -62,7 +62,7 @@ any failure ends the run with a non-zero exit code:
    polylines_exact=False, stereo_pipeline for polylines_sharp,
    polylines_soft and hybrid_edge_plus (supersampled polylines 2, exact
    polylines 0, distance 1, gather only for hybrid_edge_plus; uint8-valued
-   outputs) and device_chunk for polylines_sharp; the
+   outputs) and device_chunk for polylines_sharp (2 a group of frames); the
    StereoDiffusion node in Fast (Warp + Inpaint) mode with its defaults on
    one 512x512 fixture frame, on the full-width SD 1.5-inpainting UNet and
    SD VAE in bfloat16 with seeded random weights (flash attention 130:
@@ -1089,7 +1089,7 @@ def phase_main_path_supersampled(dev, img_d, dep_d, bgr, dep_bgr):
     device_chunk (the video loop's chunk program) for polylines_sharp."""
     import torch
     from comfystereo_tpu_torch import StereoConfig, stereo_pipeline
-    from comfystereo_tpu_torch.utils.video import device_chunk
+    from comfystereo_tpu_torch.utils.video import _groups, device_chunk
     n, h, w = dep_d.shape
     out = {}
     for fill in LEGACY_FILLS:
@@ -1120,7 +1120,8 @@ def phase_main_path_supersampled(dev, img_d, dep_d, bgr, dep_bgr):
     chunk = device_chunk(bgr, dep_bgr, cfg, device=dev)
     sync()
     got = read_launches()
-    if got["polylines_scanline"] != 2 or got["polylines_exact_rows"] != 0:
+    groups = len(_groups(n, bgr.nbytes))  # device_chunk's groups of frames
+    if got["polylines_scanline"] != 2 * groups or got["polylines_exact_rows"] != 0:
         raise AssertionError(f"device_chunk polylines_sharp (supersampled) launches {got}")
     if chunk.dtype != torch.uint8 or tuple(chunk.shape) != (n, h, 2 * w, 3):
         raise AssertionError(f"device_chunk gave {chunk.dtype} {tuple(chunk.shape)}")

@@ -18,12 +18,15 @@ an x86 host even with no profiler running. An operator records the spans beside 
 `with profiling.trace(dir): convert_video(...)`, or around a node call. The
 chunk path's spans, from the entry down:
 
-- `video.device_chunk` (`utils/video.py:device_chunk`), and in it
-  `video.upload` (the host arrays to the device, through page-locked
-  staging on a card), `video.to_float` (BGR -> RGB / 255 and the depth's
-  luma), `video.to_u8` (trunc(clamp(x * 255)) as uint8 BGR) and
-  `video.download` (the result into page-locked host memory and the wait
-  for it; empty on the CPU);
+- `video.device_chunk` (`utils/video.py:device_chunk`, which runs the
+  chunk a group of frames at a time), and in it `video.upload` (the first
+  group's host arrays to the device, through page-locked staging on a
+  card: the card's wait for its first input), `video.stage` (each later
+  group's staging and copy to the device, which the card's work on the
+  groups before it overlaps), per group `video.to_float` (BGR -> RGB / 255
+  and the depth's luma) and `video.to_u8` (trunc(clamp(x * 255)) as uint8
+  BGR), and `video.download` (the wait until every group's result is in
+  page-locked host memory; on the CPU, the groups' results joined);
 - `pipeline.stereo_pipeline` (the pass), and in it `pipeline.depth255`,
   `pipeline.eye_source`, `pipeline.eye` (one eye: the warp or the fill),
   `pipeline.pack` (`pack_mode` and its clamp or divide), `pipeline.mask`
@@ -36,8 +39,9 @@ chunk path's spans, from the entry down:
 
 `utils/video.py` counts `FRAMES` through `device_chunk`, the
 `UPLOAD_BYTES` it moves to a CUDA device, the `DOWNLOAD_BYTES` it brings
-back from one, and the `STAGED_BYTES` of either that go through
-page-locked memory.
+back from one, the `STAGED_BYTES` of either that go through page-locked
+memory, and the `OVERLAPPED_FRAMES` of chunks that ran on a CUDA device in
+two or more groups.
 """
 from __future__ import annotations
 

@@ -2,11 +2,13 @@
 
 `device_chunk` is the uint8 -> uint8 chunk program: BGR -> RGB / 255, the
 Rec.601 luma of the BGR depth frame, the pipeline, then trunc(clip(x * 255))
-and RGB -> BGR, all on the device. On a CUDA device it moves both ways
-through page-locked host memory: the host inputs are copied into it a group
-of frames at a time, each group going up while the next is copied, and the
-result comes back into a page-locked tensor of its own, which it returns
-once it is on the host. `convert_video` streams a source video and its
+and RGB -> BGR, all on the device, a group of frames at a time. On a CUDA
+device it moves both ways through page-locked host memory, and the card
+copies and computes each group while the host stages the next: a group's
+inputs are copied into page-locked staging and go up on an upload stream,
+its pass runs on the current stream, and its result comes down on a
+download stream into one page-locked tensor, which the call returns once
+every group is on the host. `convert_video` streams a source video and its
 depth video through it in `batch_size` chunks with three threads: a
 producer decodes, the main thread runs the chunks, and a consumer feeds the
 results to the encoder. Both queues hold at most 2 chunks.
@@ -22,7 +24,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
-from typing import Iterator, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -93,80 +95,173 @@ def video_fps(video_path: str) -> float:
 # Frames through `device_chunk`, bytes of host inputs it moved to a CUDA
 # device, bytes of results it brought back from one, and bytes of either
 # that went through page-locked staging, since the process started; the
-# last three stay 0 on the CPU.
+# last three stay 0 on the CPU. `OVERLAPPED_FRAMES` counts the frames of
+# chunks that ran on a CUDA device in two or more groups, whose copies and
+# kernels overlapped.
 FRAMES = 0
 UPLOAD_BYTES = 0
 DOWNLOAD_BYTES = 0
 STAGED_BYTES = 0
+OVERLAPPED_FRAMES = 0
 
-# The size of one staged group of frames: the host copy of a group into
-# page-locked memory overlaps the DMA of the group before it.
+# About the most bytes of one input in a group of frames (`_groups`):
+# `device_chunk` runs a chunk a group at a time, and on a CUDA device the
+# host's staging of a group overlaps the card's copies and kernels of the
+# group before it. 24 MiB is 4 frames of 1080p, which ran fastest of 1-12
+# frames a group on an H100.
 _GROUP_BYTES = 24 << 20
 
 
-def _upload(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
-    """`x` on `dev`. A host tensor bound for a CUDA device is staged in
-    page-locked memory a group of frames at a time, each group going up
-    without blocking the host; its copy is done before the stream's later
-    work."""
-    global UPLOAD_BYTES, STAGED_BYTES
-    if dev.type != "cuda" or x.device.type != "cpu":
-        return x.to(dev)
-    out = torch.empty(x.shape, dtype=x.dtype, device=dev)
-    staged = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-    n = x.shape[0]
-    groups = max(1, -(-x.nbytes // _GROUP_BYTES))
-    step = max(1, -(-n // groups))
-    for a in range(0, n, step):
-        staged[a:a + step].copy_(x[a:a + step])
-        out[a:a + step].copy_(staged[a:a + step], non_blocking=True)
-    UPLOAD_BYTES += x.nbytes
-    STAGED_BYTES += x.nbytes
-    return out
+# The upload and download streams of each CUDA device (by index), made on
+# first use: the caching allocator keeps the blocks freed on a stream for
+# that stream, so every chunk reuses the same two.
+_SIDE_STREAMS: Dict[int, Tuple[torch.cuda.Stream, torch.cuda.Stream]] = {}
 
 
-def _download(x: torch.Tensor) -> torch.Tensor:
-    """`x` on the host: a CUDA tensor in a page-locked host tensor of its
-    own, once the copy is done. The blocking copy is a DMA and a wait for
-    the stream, as a non-blocking copy and a stream wait would be, but it
-    leaves the block unmarked by the stream: the caching host allocator can
-    hand it out again as soon as the caller frees it, not only once the
-    work queued by then is done."""
-    global DOWNLOAD_BYTES, STAGED_BYTES
-    if x.device.type != "cuda":
-        return x
-    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-    out.copy_(x)
-    DOWNLOAD_BYTES += out.nbytes
-    STAGED_BYTES += out.nbytes
-    return out
+def _side_streams(dev: torch.device) -> Tuple[torch.cuda.Stream, torch.cuda.Stream]:
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    if index not in _SIDE_STREAMS:
+        _SIDE_STREAMS[index] = (torch.cuda.Stream(index), torch.cuda.Stream(index))
+    return _SIDE_STREAMS[index]
+
+
+def _groups(n: int, nbytes: int) -> List[Tuple[int, int]]:
+    """The [a, b) frame ranges that a chunk of `n` frames, whose inputs
+    hold `nbytes` bytes each, runs in: as few groups of equal size as keep
+    each within about `_GROUP_BYTES`, the last one shorter where `n` does
+    not divide."""
+    step = max(1, -(-n // max(1, -(-nbytes // _GROUP_BYTES))))
+    return [(a, min(a + step, n)) for a in range(0, max(n, 1), step)]
+
+
+class _HostGroups:
+    """The groups of a chunk whose pass runs where its inputs are moved by
+    `.to(dev)` (the CPU): each group taken in turn, the results joined at
+    the end."""
+
+    def __init__(self, dev: torch.device, inputs: Sequence[torch.Tensor]):
+        self.inputs = [x.to(dev) for x in inputs]
+        self.outs: List[torch.Tensor] = []
+
+    def up(self, a: int, b: int) -> List[torch.Tensor]:
+        return [x[a:b] for x in self.inputs]
+
+    def down(self, out: torch.Tensor, a: int, b: int) -> None:
+        self.outs.append(out)
+
+    def result(self) -> torch.Tensor:
+        return self.outs[0] if len(self.outs) == 1 else torch.cat(self.outs)
+
+
+class _CardGroups:
+    """The groups of a chunk whose pass runs on a CUDA device, the calling
+    thread issuing everything. Each host input is copied into page-locked
+    staging a group at a time and goes up on an upload stream; the current
+    stream waits for the group, runs its pass, and a download stream takes
+    its result into one page-locked host tensor. Each group's staging thus
+    overlaps the copies and kernels of the groups before it. Inputs already
+    on the card are used where they are.
+
+    The caching allocators keep every buffer a side stream uses until that
+    stream is done with it: the card copies of the inputs are allocated on
+    the upload stream and marked as used on the current one, each group's
+    result is marked as used on the download stream, and the non-blocking
+    copies from and into page-locked memory mark their host blocks."""
+
+    def __init__(self, dev: torch.device, inputs: Sequence[torch.Tensor]):
+        global UPLOAD_BYTES, STAGED_BYTES
+        self.compute = torch.cuda.current_stream(dev)
+        self.upload, self.download = _side_streams(dev)
+        self.inputs = []  # (host input, its staging, its place on the card)
+        for x in inputs:
+            if x.device.type != "cpu":
+                self.inputs.append((x, None, x.to(dev)))
+                continue
+            with torch.cuda.stream(self.upload):
+                on_card = torch.empty(x.shape, dtype=x.dtype, device=dev)
+            on_card.record_stream(self.compute)
+            self.inputs.append((x, torch.empty(x.shape, dtype=x.dtype, pin_memory=True),
+                                on_card))
+            UPLOAD_BYTES += x.nbytes
+            STAGED_BYTES += x.nbytes
+        self.n = inputs[0].shape[0]
+        self.out: Optional[torch.Tensor] = None
+
+    def up(self, a: int, b: int) -> List[torch.Tensor]:
+        """Frames [a, b) of every input on the card, for the current
+        stream."""
+        staged = [(x, s, c) for x, s, c in self.inputs if s is not None]
+        for x, s, _ in staged:
+            s[a:b].copy_(x[a:b])
+        if staged:
+            with torch.cuda.stream(self.upload):
+                for _, s, c in staged:
+                    c[a:b].copy_(s[a:b], non_blocking=True)
+            self.compute.wait_stream(self.upload)
+        return [c[a:b] for _, _, c in self.inputs]
+
+    def down(self, out: torch.Tensor, a: int, b: int) -> None:
+        """Frames [a, b) of the result, once the current stream has made
+        them, into the page-locked result."""
+        if self.out is None:
+            self.out = torch.empty((self.n,) + tuple(out.shape[1:]), dtype=out.dtype,
+                                   pin_memory=True)
+        self.download.wait_stream(self.compute)
+        with torch.cuda.stream(self.download):
+            self.out[a:b].copy_(out, non_blocking=True)
+        out.record_stream(self.download)
+
+    def result(self) -> torch.Tensor:
+        """The page-locked result, once every group of it has arrived."""
+        global DOWNLOAD_BYTES, STAGED_BYTES
+        self.download.synchronize()
+        DOWNLOAD_BYTES += self.out.nbytes
+        STAGED_BYTES += self.out.nbytes
+        return self.out
+
+
+def _pass(bgr: torch.Tensor, dep: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
+    """The chunk program on one group of frames, on their device: BGR uint8
+    frames and BGR uint8 depth -> the first packed mode as BGR uint8."""
+    with span("video.to_float"):
+        img = true_divide(bgr.flip(-1).float(), 255.0)
+        d = dep.float()
+        gray = true_divide(0.2989 * d[..., 2] + 0.5870 * d[..., 1] + 0.1140 * d[..., 0],
+                           255.0)
+    sbs = stereo_pipeline(img, gray, cfg)["stereo"][0]
+    with span("video.to_u8"):
+        return torch.trunc(torch.clamp(sbs.float() * 255.0, 0.0, 255.0)).to(
+            torch.uint8).flip(-1)
 
 
 def device_chunk(bgr_u8, dep_bgr_u8, cfg: StereoConfig,
                  device: DeviceLike = None) -> torch.Tensor:
     """[B, H, W, 3] BGR uint8 frames and BGR uint8 depth frames (numpy or
     tensors) -> the first packed mode as BGR uint8, on the host. The pass
-    runs on `device`; on a CUDA device the result is in page-locked memory
-    that no later call reuses while the caller holds it, and the call
-    returns once it has arrived."""
-    global FRAMES
+    runs on `device` in groups of frames (`_groups`); every frame is
+    computed alone, so the result is the same in any grouping. On a CUDA
+    device each group's staging overlaps the card's work on the groups
+    before it (`_CardGroups`), and the result is in page-locked memory that
+    no later call reuses while the caller holds it; the call returns once
+    it has arrived."""
+    global FRAMES, OVERLAPPED_FRAMES
     dev = resolve_device(device)
     with span("video.device_chunk"):
         with span("video.upload"):
-            bgr = _upload(torch.as_tensor(bgr_u8), dev)
-            dep = _upload(torch.as_tensor(dep_bgr_u8), dev)
+            bgr, dep = torch.as_tensor(bgr_u8), torch.as_tensor(dep_bgr_u8)
+            groups = _groups(bgr.shape[0], bgr.nbytes)
+            chunk = (_CardGroups if dev.type == "cuda" else _HostGroups)(dev, (bgr, dep))
+            group = chunk.up(*groups[0])
         FRAMES += bgr.shape[0]
-        with span("video.to_float"):
-            img = true_divide(bgr.flip(-1).float(), 255.0)
-            d = dep.float()
-            gray = true_divide(0.2989 * d[..., 2] + 0.5870 * d[..., 1] + 0.1140 * d[..., 0],
-                               255.0)
-        sbs = stereo_pipeline(img, gray, cfg)["stereo"][0]
-        with span("video.to_u8"):
-            out = torch.trunc(torch.clamp(sbs.float() * 255.0, 0.0, 255.0)).to(
-                torch.uint8).flip(-1)
+        if dev.type == "cuda" and len(groups) > 1:
+            OVERLAPPED_FRAMES += bgr.shape[0]
+        for k, (a, b) in enumerate(groups):
+            if k:
+                with span("video.stage"):
+                    group = chunk.up(a, b)
+            chunk.down(_pass(*group, cfg), a, b)
         with span("video.download"):
-            return _download(out)
+            return chunk.result()
 
 
 def convert_video(video_path: str, depth_video_path: str, out_path: str,

@@ -1196,17 +1196,22 @@ def test_upload_stages_groups_of_frames_exactly(dev, frames):
     x = torch.from_numpy(rng.integers(0, 256, (frames, 1080, 1920, 3), dtype=np.uint8))
     for src in (x, x.permute(0, 2, 1, 3)):
         up, staged = video.UPLOAD_BYTES, video.STAGED_BYTES
-        got = video._upload(src, dev)
+        groups = video._CardGroups(dev, (src,))
+        got = torch.cat([groups.up(a, b)[0] for a, b in video._groups(frames, src.nbytes)])
         assert got.device.type == "cuda" and torch.equal(got.cpu(), src)
         assert video.UPLOAD_BYTES == up + src.nbytes
         assert video.STAGED_BYTES == staged + src.nbytes
 
 
-def test_device_chunk_results_held_at_once_stay_their_own(dev):
+@pytest.mark.parametrize("group_frames", [None, 3])
+def test_device_chunk_results_held_at_once_stay_their_own(dev, group_frames, monkeypatch):
     """Four results of four different chunks, all held, each still equals
     its own chunk's output once the last is made: no buffer of a result is
-    reused while the caller holds it."""
+    reused while the caller holds it; in one group, or in groups of three
+    frames (3, 3, 2)."""
     from comfystereo_tpu_torch.utils import video
+    if group_frames:
+        monkeypatch.setattr(video, "_GROUP_BYTES", group_frames * H * W * 3)
     cfg = StereoConfig(batch_size=8)
     rng = np.random.default_rng(11)
     chunks = []
@@ -1231,6 +1236,60 @@ def test_device_chunk_launches_the_box_blend_once(dev, fill):
         before = (box_blend.LAUNCHES, distance.LAUNCHES)
         video.device_chunk(bgr, dep, cfg, device=dev)
         assert (box_blend.LAUNCHES, distance.LAUNCHES) == (before[0] + 1, before[1] + 1), k
+
+
+@pytest.mark.parametrize("n", [12, 7])
+@pytest.mark.parametrize("fill", ["gpu_warp", "polylines_sharp"])
+def test_device_chunk_in_groups_is_the_chunk_program(dev, fill, n):
+    """At 1080p a chunk runs in groups of frames (12: three of four; 7: four
+    and three), each group's staging overlapping the card's work on the
+    one before; the result is the whole chunk program's on the card bit for
+    bit, for host inputs and for inputs already on the card."""
+    from comfystereo_tpu_torch.utils import video
+    rng = np.random.default_rng(n)
+    bgr = rng.integers(0, 256, (n, 1080, 1920, 3), dtype=np.uint8)
+    dm = fixtures.create_depth_map(1080, 1920)
+    dep = np.stack([np.roll(dm, 7 * i, axis=1) for i in range(n)])[..., None].repeat(3, -1)
+    assert len(video._groups(n, bgr.nbytes)) > 1
+    cfg = StereoConfig(fill_technique=fill, batch_size=n)
+    want = _chunk_on_card(bgr, dep, cfg, dev)
+    for args in ((bgr, dep), (torch.from_numpy(bgr).to(dev), torch.from_numpy(dep).to(dev))):
+        out = video.device_chunk(*args, cfg, device=dev)
+        assert out.device.type == "cpu" and out.is_pinned()
+        assert out.dtype == torch.uint8 and torch.equal(out, want)
+
+
+def test_device_chunk_counts_bytes_and_overlapped_frames_in_groups(dev, monkeypatch):
+    """In groups the byte counters grow per chunk as in one group, and
+    `OVERLAPPED_FRAMES` grows by the chunk's frames only where it ran in
+    two or more groups."""
+    from comfystereo_tpu_torch.utils import video
+    bgr, dep = _chunk_u8(b=5)
+    cfg = StereoConfig(batch_size=5)
+    counters = ("FRAMES", "UPLOAD_BYTES", "DOWNLOAD_BYTES", "STAGED_BYTES", "OVERLAPPED_FRAMES")
+    for group_frames, overlapped in ((None, 0), (2, 5)):
+        if group_frames:
+            monkeypatch.setattr(video, "_GROUP_BYTES", group_frames * H * W * 3)
+        before = {c: getattr(video, c) for c in counters}
+        video.device_chunk(bgr, dep, cfg, device=dev)
+        grown = {c: getattr(video, c) - before[c] for c in counters}
+        assert grown == {"FRAMES": 5, "UPLOAD_BYTES": 2 * 5 * H * W * 3,
+                         "DOWNLOAD_BYTES": 5 * H * 2 * W * 3,
+                         "STAGED_BYTES": 4 * 5 * H * W * 3,
+                         "OVERLAPPED_FRAMES": overlapped}, group_frames
+
+
+@pytest.mark.parametrize("fill", ["gpu_warp", "polylines_sharp"])
+def test_device_chunk_launches_the_box_blend_once_a_group(dev, fill, monkeypatch):
+    """A chunk of 5 frames in groups of two launches the box-blend kernel
+    and the edge-distance kernel once for each of its three groups."""
+    from comfystereo_tpu_torch.utils import video
+    bgr, dep = _chunk_u8(b=5)
+    cfg = StereoConfig(fill_technique=fill, batch_size=5)
+    monkeypatch.setattr(video, "_GROUP_BYTES", 2 * H * W * 3)
+    before = (box_blend.LAUNCHES, distance.LAUNCHES)
+    video.device_chunk(bgr, dep, cfg, device=dev)
+    assert (box_blend.LAUNCHES, distance.LAUNCHES) == (before[0] + 3, before[1] + 3)
 
 
 @pytest.mark.parametrize("fill,homes", [

@@ -33,14 +33,24 @@ def _leaves(*names):
     return tuple((n, ()) for n in names)
 
 
-CHUNK_TREE = ("video.device_chunk", (
-    *_leaves("video.upload", "video.to_float"),
-    ("pipeline.stereo_pipeline", (
-        *_leaves("pipeline.depth255"),
-        ("blur.directional", _leaves("blur.edge_weights", "blur.box_w")),
-        *_leaves("pipeline.eye_source", "pipeline.eye", "pipeline.eye", "pipeline.pack",
-                 "pipeline.mask", "pipeline.depth_outputs"))),
-    *_leaves("video.to_u8", "video.download")))
+# One group's pass, as the chunk runs it.
+PASS = (*_leaves("video.to_float"),
+        ("pipeline.stereo_pipeline", (
+            *_leaves("pipeline.depth255"),
+            ("blur.directional", _leaves("blur.edge_weights", "blur.box_w")),
+            *_leaves("pipeline.eye_source", "pipeline.eye", "pipeline.eye", "pipeline.pack",
+                     "pipeline.mask", "pipeline.depth_outputs"))),
+        *_leaves("video.to_u8"))
+CHUNK_TREE = ("video.device_chunk", (*_leaves("video.upload"), *PASS,
+                                     *_leaves("video.download")))
+
+
+def _grouped_tree(groups: int):
+    """The span tree of a chunk run in `groups` groups: the first group's
+    upload, each later group's staging, a pass per group, one download."""
+    later = tuple(x for _ in range(groups - 1) for x in (*_leaves("video.stage"), *PASS))
+    return ("video.device_chunk", (*_leaves("video.upload"), *PASS, *later,
+                                   *_leaves("video.download")))
 
 
 def _config(name: str) -> StereoConfig:
@@ -50,11 +60,22 @@ def _config(name: str) -> StereoConfig:
     return dataclasses.replace(cfg, batch_size=B)
 
 
-def _chunk(seed: int = 0):
+def _chunk(seed: int = 0, b: int = B):
     rng = np.random.default_rng(seed)
-    bgr = rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8)
-    dep = np.repeat(rng.integers(0, 256, (B, H, W, 1), dtype=np.uint8), 3, axis=-1)
+    bgr = rng.integers(0, 256, (b, H, W, 3), dtype=np.uint8)
+    dep = np.repeat(rng.integers(0, 256, (b, H, W, 1), dtype=np.uint8), 3, axis=-1)
     return bgr, dep
+
+
+# A chunk of 5 frames run in groups of at most `frames` frames each: groups
+# (0, 3), (3, 5), or (0, 2), (2, 4), (4, 5).
+GROUPED = [(3, 2), (2, 3)]  # (frames a group may hold, groups)
+N_GROUPED = 5
+
+
+def _group_frames(monkeypatch, frames: int) -> None:
+    """Groups of at most `frames` of the test's frames."""
+    monkeypatch.setattr(video, "_GROUP_BYTES", frames * H * W * 3)
 
 
 def _traced(fn, tmp_path):
@@ -183,3 +204,68 @@ def test_cpu_chunk_is_the_chunk_program_with_no_staging(name, as_tensor):
     assert torch.equal(out, _chunk_program(bgr, dep, cfg))
     assert video.FRAMES == frames + B
     assert (video.UPLOAD_BYTES, video.DOWNLOAD_BYTES, video.STAGED_BYTES) == before
+
+
+@pytest.mark.parametrize("n,nbytes,want", [
+    (12, 12 * 1080 * 1920 * 3, [(0, 4), (4, 8), (8, 12)]),
+    (7, 7 * 1080 * 1920 * 3, [(0, 4), (4, 7)]),
+    (4, 4 * 1080 * 1920 * 3, [(0, 4)]),
+    (1, 2160 * 3840 * 3, [(0, 1)]),
+    (B, B * H * W * 3, [(0, B)]),
+    (0, 0, [(0, 0)]),
+])
+def test_chunk_groups(n, nbytes, want):
+    """Groups of equal size, each input's within about `_GROUP_BYTES`, the
+    last one shorter where the frames do not divide; a frame is never
+    split."""
+    assert video._groups(n, nbytes) == want
+
+
+@pytest.mark.parametrize("frames,groups", GROUPED)
+@pytest.mark.parametrize("name", CONFIGS)
+def test_grouped_chunk_records_the_span_tree(name, frames, groups, monkeypatch, tmp_path):
+    """A chunk run in groups records `video.upload` and `video.download`
+    once, `video.stage` for each later group, and a pass per group."""
+    cfg = _config(name)
+    bgr, dep = _chunk(5, N_GROUPED)
+    _group_frames(monkeypatch, frames)
+    assert len(video._groups(N_GROUPED, bgr.nbytes)) == groups
+    _, events = _traced(lambda: video.device_chunk(bgr, dep, cfg, device="cpu"), tmp_path)
+    assert _tree(events) == (_grouped_tree(groups),)
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_every_op_of_a_grouped_chunk_lies_in_a_span(name, monkeypatch, tmp_path):
+    """As for one group: every aten op lies in a program span, and none that
+    computes lies directly in one that holds others."""
+    cfg = _config(name)
+    bgr, dep = _chunk(6, N_GROUPED)
+    _group_frames(monkeypatch, 2)
+    _, events = _traced(lambda: video.device_chunk(bgr, dep, cfg, device="cpu"), tmp_path)
+    spans = _spans(events)
+    ops = [e for e in events if e.get("cat") == "cpu_op" and e["name"].startswith("aten::")]
+    assert ops
+    for op in ops:
+        holders = [s for s in spans if _inside(op, s)]
+        assert holders, op["name"]
+        innermost = max(holders, key=lambda s: s["ts"])["name"]
+        assert innermost not in CONTAINERS or op["name"] in NO_COPY, (innermost, op["name"])
+
+
+@pytest.mark.parametrize("frames,groups", GROUPED)
+@pytest.mark.parametrize("name", CONFIGS)
+def test_grouped_cpu_chunk_is_the_chunk_program(name, frames, groups, monkeypatch):
+    """In groups the CPU's result is the whole chunk program's bit for bit,
+    `FRAMES` grows by the chunk's frames, and no byte or overlapped frame
+    is counted: only a CUDA device overlaps."""
+    cfg = _config(name)
+    bgr, dep = _chunk(7, N_GROUPED)
+    _group_frames(monkeypatch, frames)
+    counters = ("UPLOAD_BYTES", "DOWNLOAD_BYTES", "STAGED_BYTES", "OVERLAPPED_FRAMES")
+    before = [getattr(video, c) for c in counters]
+    frames_before = video.FRAMES
+    out = video.device_chunk(bgr, dep, cfg, device="cpu")
+    assert out.dtype == torch.uint8 and out.shape == (N_GROUPED, H, 2 * W, 3)
+    assert torch.equal(out, _chunk_program(bgr, dep, cfg))
+    assert video.FRAMES == frames_before + N_GROUPED
+    assert [getattr(video, c) for c in counters] == before

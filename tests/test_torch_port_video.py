@@ -69,6 +69,54 @@ def test_device_chunk_matches_jax():
     _bound(got.numpy(), want)
 
 
+def _fixture_chunk(n):
+    """n fixture frames as BGR uint8, each shifted sideways, and the depth
+    map as BGR uint8, shifted alike."""
+    img = fixtures.create_test_image(H, W)
+    dm = np.stack([fixtures.create_depth_map(H, W)] * 3, -1)
+    bgr = np.stack([np.roll(img, 5 * i, axis=1)[..., ::-1] for i in range(n)])
+    dep = np.stack([np.roll(dm, 5 * i, axis=1) for i in range(n)])
+    return np.ascontiguousarray(bgr), np.ascontiguousarray(dep)
+
+
+def _group_frames(monkeypatch, frames):
+    """`device_chunk` runs in groups of at most `frames` frames."""
+    monkeypatch.setattr(tvideo, "_GROUP_BYTES", frames * H * W * 3)
+
+
+@pytest.mark.parametrize("frames,groups", [(2, 3), (3, 2)])
+def test_grouped_device_chunk_matches_one_group_and_jax(frames, groups, monkeypatch):
+    """A chunk of 5 frames in groups (the last one short) is the one-group
+    run's result bit for bit, and the JAX package's chunk program's within
+    the bound of the one-group run."""
+    bgr, dep = _fixture_chunk(5)
+    cfg = config_from_fields(_cfg())
+    whole = tvideo.device_chunk(bgr, dep, cfg, device="cpu")
+    _group_frames(monkeypatch, frames)
+    assert len(tvideo._groups(5, bgr.nbytes)) == groups
+    got = tvideo.device_chunk(bgr, torch.from_numpy(dep), cfg, device="cpu")
+    assert got.dtype == torch.uint8 and got.shape == (5, H, 2 * W, 3)
+    assert torch.equal(got, whole)
+    want = np.asarray(jvideo._device_chunk_fn()(jnp.asarray(bgr), jnp.asarray(dep), _cfg()))
+    _bound(got.numpy(), want)
+
+
+@pytest.mark.parametrize("fill", ["gpu_warp", "polylines_sharp"])
+def test_grouped_device_chunk_with_groups_of_other_depth_ranges(fill, monkeypatch):
+    """The pipeline tests the depth's range over what it is given (0-1 depth
+    is scaled to 0-255): a chunk whose first group's depth is all black and
+    whose second's is all white equals its one-group run, since the
+    chunk's grey depth is at most 0.9999 in every group."""
+    bgr, _ = _fixture_chunk(4)
+    dep = np.zeros_like(bgr)
+    dep[2:] = 255
+    cfg = config_from_fields(dict(modes=("left-right",), fill_technique=fill, batch_size=4))
+    whole = tvideo.device_chunk(bgr, dep, cfg, device="cpu")
+    _group_frames(monkeypatch, 2)
+    assert tvideo._groups(4, bgr.nbytes) == [(0, 2), (2, 4)]
+    assert torch.equal(tvideo.device_chunk(bgr, dep, cfg, device="cpu"), whole)
+
+
 def test_entry_points_default_device_needs_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default device is valid")

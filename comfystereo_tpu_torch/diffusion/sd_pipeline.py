@@ -22,6 +22,16 @@ on every device (the values are not `jax.random`'s): one per frame, seeded
 `seed + frame_idx` by the node, for the Fast path; one seeded `seed` for the
 Standard path's deblur noise. Each path takes its noise as an argument too
 (`noise=`), so tests can feed the JAX package's draws.
+
+The Fast path's stages are spans (`utils.profiling.span`), one per stage:
+`diffusion.warp_inpaint` around the frames' whole pass, and in it
+`diffusion.warp` (the backward warp, its mask and the prefill),
+`diffusion.vae_encode` (each of the two encodes), `diffusion.unet` (each
+UNet call of the inpainting loop), `diffusion.scheduler` (each step's
+guidance and PNDM step), `diffusion.vae_decode` and `diffusion.composite`.
+The module counts the `FRAMES` through `warp_inpaint`, and the
+`UNET_CALLS` of the inpainting loop with their latent `UNET_ROWS`, the
+guidance's doubling included.
 """
 from __future__ import annotations
 
@@ -33,6 +43,7 @@ import torch.nn.functional as F
 
 from ..ops import depth as depth_ops
 from ..ops import scan as scan_ops
+from ..utils.profiling import span
 from . import schedulers
 from .adapters import detect_model_type
 from .attention import AttentionMode
@@ -42,6 +53,10 @@ from .stereo_latent import stereo_shift_with_mask
 
 # (init_noise [B, C, h, w], step_noise [n, B, C, h, w] or None)
 Noise = Tuple[torch.Tensor, Optional[torch.Tensor]]
+
+FRAMES = 0  # frames through warp_inpaint
+UNET_CALLS = 0  # UNet calls of the inpainting loop
+UNET_ROWS = 0  # latent rows through them (both halves of the guidance's batch)
 
 
 class StereoResult(NamedTuple):
@@ -211,6 +226,7 @@ def _inpaint_loop(model: DiffusionModel, sched, ts: Sequence[int], nine_ch: bool
                   lat0, mask_lat, extra, ctx, init_noise, step_noise,
                   guidance_scale: float) -> torch.Tensor:
     """The PLMS inpainting loop over `ts` (host loop, all frames batched)."""
+    global UNET_CALLS, UNET_ROWS
     b = lat0.shape[0]
     latents = schedulers.add_noise(sched, lat0, init_noise, ts[0])
     ctx_b = ctx.repeat_interleave(b, dim=0)                  # [u x B | c x B]
@@ -222,15 +238,19 @@ def _inpaint_loop(model: DiffusionModel, sched, ts: Sequence[int], nine_ch: bool
         lat_in = torch.cat([latents] * 2, dim=0)
         if nine_ch:  # [latents | mask | masked-image latents]
             lat_in = torch.cat([lat_in, torch.cat([extra] * 2, dim=0)], dim=1)
-        eps = model.unet_apply(lat_in, t, ctx_b)
-        eps_u, eps_c = eps.chunk(2, dim=0)
-        eps = eps_u + guidance_scale * (eps_c - eps_u)
-        latents, ets, cur = schedulers.pndm_scan_step(sched, i, t, ets, cur, eps,
-                                                      latents)
-        if not nine_ch:
-            known = (schedulers.add_noise(sched, lat0, step_noise[i], t_next)
-                     if t_next >= 0 else lat0)
-            latents = torch.where(mask_lat, latents, known)
+        with span("diffusion.unet"):
+            eps = model.unet_apply(lat_in, t, ctx_b)
+        UNET_CALLS += 1
+        UNET_ROWS += lat_in.shape[0]
+        with span("diffusion.scheduler"):
+            eps_u, eps_c = eps.chunk(2, dim=0)
+            eps = eps_u + guidance_scale * (eps_c - eps_u)
+            latents, ets, cur = schedulers.pndm_scan_step(sched, i, t, ets, cur, eps,
+                                                          latents)
+            if not nine_ch:
+                known = (schedulers.add_noise(sched, lat0, step_noise[i], t_next)
+                         if t_next >= 0 else lat0)
+                latents = torch.where(mask_lat, latents, known)
     return latents
 
 
@@ -257,14 +277,17 @@ def diffusion_inpaint(model: DiffusionModel, image_nchw: torch.Tensor,
     ctx = torch.cat([model.text_encode(""), model.text_encode(prompt)], dim=0)
     nine_ch = model.unet_in_channels == 2 * model.latent_channels + 1
 
-    lat0 = image_to_latent(model, image_nchw)
+    with span("diffusion.vae_encode"):
+        lat0 = image_to_latent(model, image_nchw)
     lh, lw = lat0.shape[-2:]
     mask_lat = resize_bilinear(mask_nchw, lh, lw) > 0.1
     extra = None
     if nine_ch:
         # Masked-image latents: the known content with the hole zeroed out.
         hole = resize_bilinear(mask_nchw, *image_nchw.shape[-2:]) > 0.5
-        masked_lat0 = image_to_latent(model, image_nchw * (1.0 - hole.to(image_nchw.dtype)))
+        with span("diffusion.vae_encode"):
+            masked_lat0 = image_to_latent(model,
+                                          image_nchw * (1.0 - hole.to(image_nchw.dtype)))
         extra = torch.cat([mask_lat.to(lat0.dtype), masked_lat0], dim=1)
 
     ts = [int(t) for t in schedulers.pndm_skip_timesteps(sched, strength)]
@@ -275,7 +298,16 @@ def diffusion_inpaint(model: DiffusionModel, image_nchw: torch.Tensor,
                             lat0.device)
     latents = _inpaint_loop(model, sched, ts, nine_ch, lat0, mask_lat, extra, ctx,
                             noise[0], noise[1], float(guidance_scale))
-    return latent_to_image(model, latents)
+    with span("diffusion.vae_decode"):
+        return latent_to_image(model, latents)
+
+
+def _composite(inpainted: torch.Tensor, prefilled: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """The decoded [-1, 1] NCHW inpainting, as [0, 1] NHWC, inside the mask
+    [B, H, W]; the prefilled warp outside it."""
+    with span("diffusion.composite"):
+        return torch.where(mask[..., None], _nan_guard(_to_01(inpainted)), prefilled)
 
 
 def warp_inpaint(model: DiffusionModel, image_nhwc: torch.Tensor,
@@ -287,12 +319,15 @@ def warp_inpaint(model: DiffusionModel, image_nhwc: torch.Tensor,
     """Fast path: warp the right eye, inpaint disocclusions, recomposite in
     pixel space inside the mask only. image [B,H,W,C] in [0, 1], depth
     [B,H,W]; `seed` is one int or one per frame."""
-    warped, mask = backward_warp_right(image_nhwc, depth, divergence)
-    prefilled = border_prefill(warped, mask)
-    img_nchw = prefilled.permute(0, 3, 1, 2) * 2.0 - 1.0
-    inpainted = diffusion_inpaint(
-        model, img_nchw, mask[:, None].float(), prompt, num_inference_steps,
-        strength, guidance_scale, seed, noise)
-    inpainted01 = _nan_guard(_to_01(inpainted))
-    right = torch.where(mask[..., None], inpainted01, prefilled)
+    global FRAMES
+    with span("diffusion.warp_inpaint"):
+        with span("diffusion.warp"):
+            warped, mask = backward_warp_right(image_nhwc, depth, divergence)
+            prefilled = border_prefill(warped, mask)
+            img_nchw = prefilled.permute(0, 3, 1, 2) * 2.0 - 1.0
+        inpainted = diffusion_inpaint(
+            model, img_nchw, mask[:, None].float(), prompt, num_inference_steps,
+            strength, guidance_scale, seed, noise)
+        right = _composite(inpainted, prefilled, mask)
+    FRAMES += image_nhwc.shape[0]
     return StereoResult(left=image_nhwc, right=right)

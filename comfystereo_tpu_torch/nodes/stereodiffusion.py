@@ -23,6 +23,7 @@ from ..device import DeviceLike, as_float_tensor, resolve_device
 from ..diffusion import make_toy_model
 from ..diffusion.sd_pipeline import resize_bilinear, text2stereo, warp_inpaint
 from ..utils.caching import get_or_load_model
+from ..utils.profiling import span
 
 PIPELINE_MODES = ("Standard (DDIM)", "Fast (Warp + Inpaint)")
 # What a model that is absent or unusable raises on the way through the
@@ -196,48 +197,50 @@ class StereoDiffusionNode:
                         prompt="", device: DeviceLike = None):
         """Returns (stereo_pair [B,H,2W,3], left [B,H,W,3], right [B,H,W,3])
         as CPU float32 tensors. `device=None` means CUDA; a given bundle must
-        live on the same device, and a resolved model is loaded there."""
-        dev = resolve_device(device)
-        # Fast mode prefers the inpainting checkpoint.
-        wanted_id = inpaint_model_id if pipeline_mode != "Standard (DDIM)" else model_id
-        model = _resolve_model(model, clip, vae, wanted_id, pipeline_mode, device=dev)
-        if torch.device(model.device) != dev:
-            raise ValueError(f"model bundle on {model.device}, node asked for {dev}")
-        img = as_float_tensor(image, dev)
-        dm = as_float_tensor(depth_map, dev)
-        if img.dim() == 3:
-            img = img[None]
-        if dm.dim() == 4:
-            dm = (0.2989 * dm[..., 0] + 0.5870 * dm[..., 1]
-                  + 0.1140 * dm[..., 2]) if dm.shape[-1] == 3 else dm[..., 0]
-        if dm.dim() == 2:
-            dm = dm[None]
+        live on the same device, and a resolved model is loaded there. The
+        call is the span `node.stereo_diffusion`."""
+        with span("node.stereo_diffusion"):
+            dev = resolve_device(device)
+            # Fast mode prefers the inpainting checkpoint.
+            wanted_id = inpaint_model_id if pipeline_mode != "Standard (DDIM)" else model_id
+            model = _resolve_model(model, clip, vae, wanted_id, pipeline_mode, device=dev)
+            if torch.device(model.device) != dev:
+                raise ValueError(f"model bundle on {model.device}, node asked for {dev}")
+            img = as_float_tensor(image, dev)
+            dm = as_float_tensor(depth_map, dev)
+            if img.dim() == 3:
+                img = img[None]
+            if dm.dim() == 4:
+                dm = (0.2989 * dm[..., 0] + 0.5870 * dm[..., 1]
+                      + 0.1140 * dm[..., 2]) if dm.shape[-1] == 3 else dm[..., 0]
+            if dm.dim() == 2:
+                dm = dm[None]
 
-        # Diffusion runs at the model's native square sample size; results
-        # are resized back to the input size afterwards (both eyes).
-        orig_h, orig_w = img.shape[1], img.shape[2]
-        s = int(getattr(model, "sample_size", 512) or 512)
-        img = _resize_to(img, s, s)
-        dm = _resize_to(dm, s, s)
-        with torch.no_grad():
-            if pipeline_mode == "Standard (DDIM)":
-                # First frame only; null-text optimisation enables autograd
-                # for itself.
-                out = text2stereo(
-                    model, img[:1].permute(0, 3, 1, 2) * 2.0 - 1.0, dm[:1], prompt,
-                    scale_factor=scale_factor, direction=direction, deblur=deblur,
-                    guidance_scale=guidance_scale,
-                    num_inference_steps=num_inference_steps,
-                    null_text_optimization=null_text_optimization, seed=seed)
-            else:
-                out = warp_inpaint(
-                    model, img, dm, prompt, divergence=scale_factor,
-                    num_inference_steps=num_inference_steps,
-                    strength=denoise_strength, guidance_scale=guidance_scale,
-                    seed=seed + np.arange(img.shape[0], dtype=np.uint64))
-        left = _resize_to(out.left, orig_h, orig_w).cpu()
-        right = _resize_to(out.right, orig_h, orig_w).cpu()
-        return torch.cat([left, right], dim=2), left, right
+            # Diffusion runs at the model's native square sample size; results
+            # are resized back to the input size afterwards (both eyes).
+            orig_h, orig_w = img.shape[1], img.shape[2]
+            s = int(getattr(model, "sample_size", 512) or 512)
+            img = _resize_to(img, s, s)
+            dm = _resize_to(dm, s, s)
+            with torch.no_grad():
+                if pipeline_mode == "Standard (DDIM)":
+                    # First frame only; null-text optimisation enables autograd
+                    # for itself.
+                    out = text2stereo(
+                        model, img[:1].permute(0, 3, 1, 2) * 2.0 - 1.0, dm[:1], prompt,
+                        scale_factor=scale_factor, direction=direction, deblur=deblur,
+                        guidance_scale=guidance_scale,
+                        num_inference_steps=num_inference_steps,
+                        null_text_optimization=null_text_optimization, seed=seed)
+                else:
+                    out = warp_inpaint(
+                        model, img, dm, prompt, divergence=scale_factor,
+                        num_inference_steps=num_inference_steps,
+                        strength=denoise_strength, guidance_scale=guidance_scale,
+                        seed=seed + np.arange(img.shape[0], dtype=np.uint64))
+            left = _resize_to(out.left, orig_h, orig_w).cpu()
+            right = _resize_to(out.right, orig_h, orig_w).cpu()
+            return torch.cat([left, right], dim=2), left, right
 
 
 NODE_CLASS_MAPPINGS = {"StereoDiffusionNode": StereoDiffusionNode}

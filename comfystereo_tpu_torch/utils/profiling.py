@@ -37,6 +37,13 @@ chunk path's spans, from the entry down:
   horizontal box mean and both blends; before the kernel, the blur's
   `blur.box_h` and `blur.blend` spans held the first and the last of these).
 
+The Stereo Diffusion node's Fast path: `node.stereo_diffusion` (the node
+call), and in it `diffusion.warp_inpaint`, which holds `diffusion.warp`,
+`diffusion.vae_encode` (twice), `diffusion.unet` and `diffusion.scheduler`
+(once a step each), `diffusion.vae_decode` and `diffusion.composite`
+(`diffusion/sd_pipeline.py`, which counts `FRAMES`, `UNET_CALLS` and
+`UNET_ROWS`).
+
 `utils/video.py` counts `FRAMES` through `device_chunk`, the
 `UPLOAD_BYTES` it moves to a CUDA device, the `DOWNLOAD_BYTES` it brings
 back from one, the `STAGED_BYTES` of either that go through page-locked

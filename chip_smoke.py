@@ -65,15 +65,19 @@ any failure ends the run with a non-zero exit code:
    outputs) and device_chunk for polylines_sharp (2 a group of frames); the
    StereoDiffusion node in Fast (Warp + Inpaint) mode with its defaults on
    one 512x512 fixture frame, on the full-width SD 1.5-inpainting UNet and
-   SD VAE in bfloat16 with seeded random weights (flash attention 130:
-   13 UNet calls x 10 self-attentions), then one UNet CFG call and the
-   whole warp_inpaint with the attention forced to its plain version; the
+   SD VAE in bfloat16 with seeded random weights (13 UNet calls x 10
+   self-attentions on the card: 13 calls served by one captured CUDA
+   graph, so the flash wrapper's host launches are 20, the warm-up's and
+   the capture's), then one UNet CFG call (eagerly) and the whole
+   warp_inpaint with the attention forced to its plain version; the
    node in Standard (DDIM) mode with its defaults (20 steps, guidance 3,
    'uni', deblur off, null-text on) on the same frame, on the full-width SD
    1.5 UNet and SD VAE in bfloat16 with seeded random weights, then a short
-   second call ('bi', deblur on, 5 steps, no null-text): flash launches
-   10 per UNet forward plus 10 per stereo-active CFG call, the UNet calls
-   counted around `unet_apply` (the backward launches none); outputs
+   second call ('bi', deblur on, 5 steps, no null-text): flash host
+   launches 10 per eager UNet forward (null-text's inner iterations) and
+   per warm-up and capture of a graph, twice that for stereo-active CFG
+   calls, none for a replay, the UNet calls counted around `unet_apply`
+   (the backward launches none); outputs
    finite in [0, 1]; one null-text gradient of u at full width through
    the kernel against the plain attention's (relative L2 <= 0.05); and,
    from two diffusers-layout directories written under build/sd_checkpoints/
@@ -81,9 +85,11 @@ any failure ends the run with a non-zero exit code:
    safetensors writer: SD 1.5-inpainting and SD 1.5, each with the CLIP
    ViT-L/14 text tower and a vocab generated at CLIP's size), the node
    resolving its own model offline: Fast mode with `inpaint_model_id`
-   (`load_inpainting_model`, bf16, the checkpoint's CLIP; flash 130), one
+   (`load_inpainting_model`, bf16, the checkpoint's CLIP; flash host
+   launches 20, one capture), one
    CFG call of that bundle bit-equal to `build_sd_model`'s on the same
-   float16 weights, the w8 model's CFG call within 0.05 of it (flash 10),
+   float16 weights, the w8 model's CFG call within 0.05 of it (flash 20,
+   its capture),
    Standard mode with `model_id` (5 steps, no null-text; float32, flash 0),
    and an id on no disk falling back loudly to the toy model on the card;
    then stereo_pipeline on sharded chunks (`parallel/`) at 1080p B=12: the
@@ -1337,6 +1343,30 @@ def rel_l2(a, b) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
+def eager_unet(model, lat, t, ctx):
+    """One UNet call of a `build_sd_model` bundle run eagerly
+    (`GraphedUNet.eager`), for checks that swap the attention route or
+    record its calls: a graph's replay makes no Python call."""
+    from comfystereo_tpu_torch.diffusion.attention import AttentionMode
+    return model.unet_apply.eager(lat, t, ctx, AttentionMode(), False)
+
+
+def graph_counts():
+    from comfystereo_tpu_torch.diffusion import sd_unet
+    return sd_unet.UNET_GRAPH_CAPTURES, sd_unet.UNET_GRAPH_CALLS
+
+
+def host_flash(calls: int, before) -> int:
+    """The flash launches the host makes for `calls` plain (not stereo)
+    UNet calls of SD 1.5 at 512x512, given the graph counters' values
+    `before` them: an eager call makes its 10, a capture makes them once
+    for each warm-up and once into the graph, a replay makes none
+    (`LAUNCHES` counts host launches)."""
+    from comfystereo_tpu_torch.diffusion import sd_unet
+    caps, graphed = (a - b for a, b in zip(graph_counts(), before))
+    return SD_FLASH_PER_CALL * (calls - graphed + (sd_unet.GRAPH_WARMUPS + 1) * caps)
+
+
 @contextlib.contextmanager
 def nan_guard_spy(seen: list):
     """Record how many non-finite values each call of the pipeline's NaN
@@ -1388,6 +1418,7 @@ def phase_diffusion(dev):
     img, dep = sd_fixture(SD_SIZE)
     seen = []
     reset_launches()
+    graphs0 = graph_counts()
     t0 = time.perf_counter()
     with nan_guard_spy(seen):
         pair, left, right = StereoDiffusionNode().generate_stereo(img, dep, model=model,
@@ -1395,9 +1426,12 @@ def phase_diffusion(dev):
     node_s = time.perf_counter() - t0
     launches = read_launches()
     want = {k: 0 for k in launches}
-    want["flash_attention"] = SD_UNET_CALLS * SD_FLASH_PER_CALL
-    if launches != want:
-        raise AssertionError(f"StereoDiffusion Fast launches {launches}, expected {want}")
+    want["flash_attention"] = host_flash(SD_UNET_CALLS, graphs0)
+    graphs = [a - b for a, b in zip(graph_counts(), graphs0)]
+    want_graphs = [1, SD_UNET_CALLS] if dev.type == "cuda" else [0, 0]  # none on the CPU
+    if launches != want or graphs != want_graphs:
+        raise AssertionError(f"StereoDiffusion Fast launches {launches}, expected {want}; "
+                             f"graphs captured and replayed {graphs}, expected {want_graphs}")
     s = SD_SIZE
     check_sd_outputs("StereoDiffusion Fast", pair, left, right, s)
     if seen != [0]:
@@ -1413,7 +1447,8 @@ def phase_diffusion(dev):
     changed = float((right - prefilled).abs()[~keep].mean())
     log(f"phase 3 StereoDiffusion Fast: model {n_params / 1e6:.1f}M parameters (bf16) "
         f"built in {build_s:.1f} s; node on 1 frame {s}x{s} in {node_s:.2f} s (first "
-        f"call), launches {launches}; mask share {float(mask.float().mean()):.4f}, "
+        f"call), host launches {launches}, {graphs[1]} UNet calls served by "
+        f"{graphs[0]} captured CUDA graph; mask share {float(mask.float().mean()):.4f}, "
         f"mean |inpainted - prefill| inside the mask {changed:.4f}; left == input, "
         "right == prefilled warp outside the mask")
 
@@ -1433,14 +1468,16 @@ def phase_diffusion(dev):
 
     before = fa.LAUNCHES
     with attention_as(record):
-        eps_k = model.unet_apply(lat, t_first, ctx)
+        eps_k = eager_unet(model, lat, t_first, ctx)
     with attention_as(fa.reference):
-        eps_p = model.unet_apply(lat, t_first, ctx)
+        eps_p = eager_unet(model, lat, t_first, ctx)
+        # Through graphs captured with the plain version (the graph key
+        # holds the attention route).
         plain_out = sd_pipeline.warp_inpaint(
             model, img_d, dep_d, "", divergence=5.0, num_inference_steps=20, strength=0.6,
             guidance_scale=3.0, seed=np.array([SD_SEED], np.uint64))
     with attention_as(exact_attention):
-        eps_x = model.unet_apply(lat, t_first, ctx)
+        eps_x = eager_unet(model, lat, t_first, ctx)
     sync()
     if fa.LAUNCHES != before + SD_FLASH_PER_CALL or len(calls) != SD_FLASH_PER_CALL:
         raise AssertionError("the plain and exact runs launched the kernel")
@@ -1495,12 +1532,18 @@ def phase_diffusion(dev):
 class UNetCalls:
     """Counts a bundle's UNet calls while it is in use: all forwards, the
     forwards whose context needs a gradient (null-text inner iterations),
-    and the stereo-active CFG calls of the denoising loop; with `timed`, the
-    CUDA-event time of each denoising call, plain and stereo-active apart."""
+    the stereo-active CFG calls of the denoising loop, the calls a CUDA
+    graph's replay served, and `host_passes`, the forwards whose flash
+    launches the host made, a stereo-active CFG call's counting twice (its
+    self-attentions run as two pairs): one for an eager call, the warm-ups
+    and the capture for a call that captured, none for a replay alone; with
+    `timed`, the CUDA-event time of each denoising call, plain and
+    stereo-active apart."""
 
     def __init__(self, model, timed: bool = False):
         self.model, self.apply, self.timed = model, model.unet_apply, timed
         self.forward = self.grad = self.stereo = self.plain_cfg = 0
+        self.graphed = self.host_passes = 0
         self.events = {"plain": [], "stereo": []}
 
     def __enter__(self):
@@ -1514,13 +1557,20 @@ class UNetCalls:
                 kind = "stereo" if stereo_active else "plain"
                 self.stereo += kind == "stereo"
                 self.plain_cfg += kind == "plain"
-            if not (self.timed and kind):
-                return self.apply(latents, t, context, mode=mode, stereo_active=stereo_active)
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
+            from comfystereo_tpu_torch.diffusion import sd_unet
+            before = graph_counts()
+            ev = ([torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                  if self.timed and kind else None)
+            if ev:
+                ev[0].record()
             out = self.apply(latents, t, context, mode=mode, stereo_active=stereo_active)
-            ev[1].record()
-            self.events[kind].append(ev)
+            if ev:
+                ev[1].record()
+                self.events[kind].append(ev)
+            caps, graphed = (a - b for a, b in zip(graph_counts(), before))
+            self.graphed += graphed
+            passes = (sd_unet.GRAPH_WARMUPS + 1) * caps if graphed else 1
+            self.host_passes += passes * (2 if kind == "stereo" else 1)
             return out
 
         self.model.unet_apply = counted
@@ -1551,7 +1601,9 @@ def phase_standard(dev):
     with seeded random weights; then a short second call ('bi', deblur on, 5
     steps, no null-text). Flash launches must be 10 per UNet forward plus 10
     per stereo-active CFG call (its self-attentions run as two pairs); the
-    backward launches none. Then one null-text gradient of u at full width
+    backward launches none; `LAUNCHES` counts host launches, so a call
+    served by a CUDA graph's replay adds none (`UNetCalls.host_passes`).
+    Then one null-text gradient of u at full width
     through the kernel against the same gradient with the attention forced
     to its plain version."""
     import torch
@@ -1584,9 +1636,11 @@ def phase_standard(dev):
                                  f"{calls.stereo}, inner {calls.grad}), expected {fwd} "
                                  f"({stereo})")
         want = {k: 0 for k in launches}
-        want["flash_attention"] = SD_FLASH_PER_CALL * (calls.forward + calls.stereo)
-        if launches != want:
-            raise AssertionError(f"Standard {label} launches {launches}, expected {want}")
+        want["flash_attention"] = SD_FLASH_PER_CALL * calls.host_passes
+        replayed = calls.forward - calls.grad if dev.type == "cuda" else 0
+        if launches != want or calls.graphed != replayed:
+            raise AssertionError(f"Standard {label} launches {launches}, expected {want}; "
+                                 f"{calls.graphed} calls replayed, expected {replayed}")
         check_sd_outputs(f"Standard {label}", pair, left, right, s)
         if seen != [0]:
             raise AssertionError(f"the NaN guard scrubbed {seen} non-finite values")
@@ -1595,12 +1649,14 @@ def phase_standard(dev):
             raise AssertionError("Standard node: the right eye equals the left")
         runs[label] = {"seconds": sec, "unet_forwards": calls.forward,
                        "stereo_cfg_calls": calls.stereo, "null_text_inner": calls.grad,
+                       "graphed_calls": calls.graphed,
                        "flash_launches": launches["flash_attention"]}
         log(f"phase 3 StereoDiffusion Standard ({label}: {steps} steps, '{kw['direction']}', "
             f"deblur {kw['deblur']}, null-text {nt}): node on 1 frame {s}x{s} in {sec:.2f} s "
             f"(first call), {calls.forward} UNet forwards ({calls.grad} null-text inner "
-            f"iterations with a backward), {calls.stereo} stereo-active CFG calls, launches "
-            f"{launches} = {SD_FLASH_PER_CALL} x ({calls.forward} + {calls.stereo}); mean "
+            f"iterations with a backward), {calls.stereo} stereo-active CFG calls, "
+            f"{calls.graphed} calls replayed; host launches {launches} = "
+            f"{SD_FLASH_PER_CALL} x {calls.host_passes} passes; mean "
             f"|left - right| "
             f"{lr_diff:.4f}, mean |left - input| "
             f"{float((left - torch.from_numpy(img)).abs().mean()):.4f}")
@@ -1618,8 +1674,8 @@ def null_text_grad(model, lat, prev, t: int, sched, guidance: float = 3.0):
     import torch
     from comfystereo_tpu_torch.diffusion import schedulers
     cond = model.text_encode("")
-    with torch.no_grad():
-        eps_c = model.unet_apply(lat, t, cond)
+    with torch.no_grad():  # eager, so the two forwards launch 2 x 10 whatever graphs exist
+        eps_c = eager_unet(model, lat, t, cond)
     u = cond.detach().clone().requires_grad_(True)
     eps_u = model.unet_apply(lat, t, u)
     eps = eps_u + guidance * (eps_c - eps_u)
@@ -1723,11 +1779,13 @@ def phase_checkpoint(dev, ck):
     directories, offline (COMFYSTEREO_OFFLINE=1):
     (a) Fast mode, node defaults, `inpaint_model_id` = the inpainting
         directory and a prompt: the bundle from `load_inpainting_model` in
-        bf16 with the checkpoint's CLIP; flash 130;
+        bf16 with the checkpoint's CLIP; flash host launches 20 (`host_flash`:
+        13 calls replayed from one capture);
     (b) one UNet CFG call of that bundle bit-equal to `build_sd_model`'s on
         the same float16 weights;
     (e) w8: the same weights with `weight_quant=True`, one CFG call within
-        0.05 (mean |delta eps| / mean |eps|), flash 10;
+        0.05 (mean |delta eps| / mean |eps|), flash host launches 20 (its
+        capture);
     (c) Standard mode, `model_id` = the SD 1.5 directory, 5 steps, no
         null-text: float32 from `load_sd_model`, flash 0;
     (d) an id on no disk: the loud banner, and the toy model on the card."""
@@ -1755,12 +1813,14 @@ def phase_checkpoint(dev, ck):
     try:
         seen = []
         reset_launches()
+        graphs0 = graph_counts()
         t0 = time.perf_counter()
         with nan_guard_spy(seen):
             pair, left, right = node.generate_stereo(img, dep, inpaint_model_id=ck["inpaint"],
                                                      prompt=SD_PROMPT, device=dev)
         fast_s = time.perf_counter() - t0
         fast_launches = read_launches()
+        fast_want = host_flash(SD_UNET_CALLS, graphs0)
         fast = caching._model_cache.get(f"{ck['inpaint']}:inpaint:{dev}")
         reset_launches()
         t0 = time.perf_counter()
@@ -1777,7 +1837,7 @@ def phase_checkpoint(dev, ck):
     if fast is None or std is None or len(loads) != 2:
         raise AssertionError(f"the node did not load through model_loader ({len(loads)} loads)")
     want = {k: 0 for k in fast_launches}
-    want["flash_attention"] = SD_UNET_CALLS * SD_FLASH_PER_CALL
+    want["flash_attention"] = fast_want
     if fast_launches != want:
         raise AssertionError(f"loaded Fast launches {fast_launches}, expected {want}")
     if std_launches != {k: 0 for k in std_launches}:
@@ -1831,12 +1891,13 @@ def phase_checkpoint(dev, ck):
                         weight_quant=True)
     n_w8 = sum(isinstance(m, quantize.W8Linear) for m in w8.unet.modules())
     reset_launches()
+    graphs0 = graph_counts()
     eps_q = w8.unet_apply(lat, t_first, ctx)
     sync()
     w8_launches = read_launches()["flash_attention"]
+    w8_want = host_flash(1, graphs0)
     w8_rel = float((eps_q - eps_r).abs().mean() / eps_r.abs().mean())
-    if not bool(torch.isfinite(eps_q).all()) or w8_rel >= 0.05 or \
-            w8_launches != SD_FLASH_PER_CALL:
+    if not bool(torch.isfinite(eps_q).all()) or w8_rel >= 0.05 or w8_launches != w8_want:
         raise AssertionError(f"w8 CFG call: mean |delta eps| / mean |eps| {w8_rel} (bound "
                              f"0.05), flash launches {w8_launches}")
     bytes_bf16, bytes_w8 = quantize.quantized_bytes(ref.unet), quantize.quantized_bytes(w8.unet)
@@ -2171,7 +2232,8 @@ def diffusion_times(dev, sd, launches: int, err: float, smi: str, name: str):
         run()
     sync()
     frame_ms = (time.perf_counter() - t0) / 2 * 1e3
-    calls, half = SD_UNET_CALLS, launches // 2  # half the launches at each level
+    # half of a frame's device launches at each level (replays included)
+    calls, half = SD_UNET_CALLS, SD_UNET_CALLS * SD_FLASH_PER_CALL // 2
     log(f"  StereoDiffusion Fast {s}x{s} bf16 [{smi}]: UNet CFG call "
         f"{tuple(sd['lat'].shape)} {unet_ms:.3f} ms; VAE encode {enc_ms:.3f} ms, decode "
         f"{dec_ms:.3f} ms; warp_inpaint {frame_ms:.1f} ms/frame ({calls} UNet calls = "

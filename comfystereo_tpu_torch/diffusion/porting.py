@@ -49,9 +49,8 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from .attention import AttentionMode
 from .models import DiffusionModel, HashTextEncoder
-from .sd_unet import SD15_UNET_CONFIG, SDUNet, SDUNetConfig
+from .sd_unet import SD15_UNET_CONFIG, GraphedUNet, SDUNet, SDUNetConfig
 from .sd_vae import SD_VAE_CONFIG, SDVAE, SDVAEConfig
 
 # Module names whose trailing _<digit> is diffusers' own spelling, not a list
@@ -510,7 +509,9 @@ def build_sd_model(unet_cfg=None, vae_cfg=None, dtype: torch.dtype = torch.float
     `weight_quant` the UNet's large matrix and conv weights are stored as
     w8 after the cast (`quantize.quantize_module_`): half the bytes of
     bf16, the same API; a UNet quantised further by the caller keeps its
-    w8 layers. `device=None` means CUDA.
+    w8 layers. `unet_apply` is a `sd_unet.GraphedUNet`: on a card, a call
+    that needs no gradient replays a CUDA graph of the UNet's forward.
+    `device=None` means CUDA.
     """
     if init_mode not in ("random", "zeros"):
         raise ValueError(f"build_sd_model: init_mode {init_mode!r} not in ('random', 'zeros')")
@@ -532,14 +533,8 @@ def build_sd_model(unet_cfg=None, vae_cfg=None, dtype: torch.dtype = torch.float
         from .quantize import quantize_module_
         quantize_module_(unet, dtype)
 
-    def unet_apply(latents, t, context, mode: Optional[AttentionMode] = None,
-                   stereo_active: bool = False):
-        out = unet(latents.to(dtype), t, context.to(dtype),
-                   mode=mode or AttentionMode(), stereo_active=stereo_active)
-        return out.float()
-
     return DiffusionModel(
-        unet_apply=unet_apply,
+        unet_apply=GraphedUNet(unet, dtype),
         vae_encode=lambda x: vae.encode(x.to(dtype)).float(),
         vae_decode=lambda z: vae.decode(z.to(dtype)).float(),
         text_encode=text_encode or HashTextEncoder(

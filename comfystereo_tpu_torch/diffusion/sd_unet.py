@@ -12,16 +12,25 @@ norms take their statistics in f32 (mean and E[x^2] - mean^2) and normalise
 in f32 before one rounding to the activation dtype; the timestep embedding
 MLP runs in f32 and is cast to the activation dtype afterwards; GELU is the
 exact (erf) form.
+
+`GraphedUNet`, a bundle's `unet_apply`, replays each call on a card that
+needs no gradient as one captured CUDA graph of `SDUNet.forward`, in place
+of its thousands of eager launches; the forward copies nothing from the
+host (the timestep comes as a device tensor, the sinusoid's frequencies
+are held on the device) and waits for nothing, so it can be captured, and
+it launches the same kernels either way.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..kernels import flash_attention as fa
 from .attention import AttentionMode, bn_attention
 
 
@@ -84,8 +93,8 @@ class GroupNorm(nn.Module):
         ones = (1,) * (x.dim() - 2)
         per = c // self.num_groups
 
-        def to_channels(t):  # [B, G] -> [B, C, 1, 1]
-            return t.repeat_interleave(per, dim=1).reshape((b, c) + ones)
+        def to_channels(t):  # [B, G] -> [B, C, 1, 1], each group's value per channel
+            return t[:, :, None].expand(b, self.num_groups, per).reshape((b, c) + ones)
 
         xg = x.float().reshape(b, self.num_groups, -1)
         return _normalize(x, xg, to_channels, self.weight, self.bias,
@@ -106,13 +115,28 @@ class LayerNorm(nn.Module):
                           self.bias, self.eps, (-1,))
 
 
+_FREQS: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+
+
+def timestep_freqs(dim: int, device) -> torch.Tensor:
+    """The sinusoid's dim // 2 frequencies exp(-ln(10000) * i / half),
+    computed in f32 on the host and held on `device`, once per (dim,
+    device): a forward copies nothing to the device for them, so a CUDA
+    graph can capture it."""
+    key = (dim, torch.device(device))
+    freqs = _FREQS.get(key)
+    if freqs is None:
+        half = dim // 2
+        log10k = torch.log(torch.tensor(10000.0, dtype=torch.float32))
+        freqs = torch.exp(-log10k * torch.arange(half, dtype=torch.float32) / half)
+        freqs = _FREQS[key] = freqs.to(key[1])
+    return freqs
+
+
 def sd_timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
     """diffusers get_timestep_embedding with flip_sin_to_cos=True,
     downscale_freq_shift=0: [B] -> [B, dim] as [cos | sin], in f32."""
-    half = dim // 2
-    log10k = torch.log(torch.tensor(10000.0, dtype=torch.float32))
-    freqs = torch.exp(-log10k * torch.arange(half, dtype=torch.float32) / half)
-    args = t.float()[:, None] * freqs.to(t.device)[None, :]
+    args = t.float()[:, None] * timestep_freqs(dim, t.device)[None, :]
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
 
 
@@ -420,3 +444,154 @@ class SDUNet(nn.Module):
             x = blk(x, skips, temb, context, **kw)
         return self.conv_out(F.silu(self.conv_norm_out(x)))
 
+
+
+# ---------------------------------------------------------------------------
+# The forward as CUDA graphs
+# ---------------------------------------------------------------------------
+
+UNET_GRAPH_CAPTURES = 0  # CUDA graphs captured of SDUNet.forward
+UNET_GRAPH_CALLS = 0  # UNet calls served by a graph's replay (each capturing call too)
+MAX_GRAPHS = 4  # graphs one GraphedUNet holds; the least recently used is dropped
+GRAPH_WARMUPS = 1  # eager forwards on a side stream before each capture
+
+
+def _backend_flags() -> tuple:
+    """The global switches by which cuDNN and cuBLAS choose their kernels."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    return (cudnn.enabled, cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32,
+            matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction,
+            matmul.allow_fp16_reduced_precision_reduction,
+            torch.are_deterministic_algorithms_enabled())
+
+
+def graph_key(latents: torch.Tensor, t, context: torch.Tensor, mode: AttentionMode,
+              stereo_active: bool) -> tuple:
+    """What one call's launches depend on: the latents', the timestep's and
+    the context's shapes, strides (the convolutions' memory format) and
+    dtypes, the device, the attention mode, `stereo_active`, the backend
+    switches, and the attention route that `diffusion/attention.py` looks
+    up at each call."""
+    t = t if isinstance(t, torch.Tensor) else torch.as_tensor(t)
+    return (latents.device, tuple(latents.shape), latents.stride(), latents.dtype,
+            tuple(t.shape), t.dtype, tuple(context.shape), context.stride(), context.dtype,
+            mode, bool(stereo_active), _backend_flags(), fa.flash_attention)
+
+
+def _dense(x: torch.Tensor) -> bool:
+    return x.is_contiguous() or (x.dim() == 4 and
+                                 x.is_contiguous(memory_format=torch.channels_last))
+
+
+def graphable(latents: torch.Tensor, t, context: torch.Tensor) -> bool:
+    """True where a call can be served by a replay: the latents on a CUDA
+    device with the context, each dense in its memory format (contiguous,
+    or channels-last latents, as the VAE's encode leaves them), and no
+    input requiring grad."""
+    return (latents.device.type == "cuda" and context.device == latents.device
+            and _dense(latents) and _dense(context)
+            and not (latents.requires_grad or context.requires_grad
+                     or (isinstance(t, torch.Tensor) and t.requires_grad)))
+
+
+class _CapturedForward:
+    """One CUDA graph of `SDUNet.forward` with its static inputs (latents and
+    context in the UNet's dtype and in the memory format `.to(dtype)` keeps,
+    the timestep as a device tensor of its own dtype) and its output, in a
+    memory pool of its own."""
+
+    def __init__(self, unet: SDUNet, dtype: torch.dtype, latents: torch.Tensor,
+                 t: torch.Tensor, context: torch.Tensor, mode: AttentionMode,
+                 stereo_active: bool):
+        global UNET_GRAPH_CAPTURES
+        dev = latents.device
+        self.latents = torch.empty_like(latents, dtype=dtype)
+        self.t = torch.empty(t.shape, dtype=t.dtype, device=dev)
+        self.context = torch.empty_like(context, dtype=dtype)
+
+        def forward():
+            return unet(self.latents, self.t, self.context, mode=mode,
+                        stereo_active=stereo_active)
+
+        with torch.cuda.device(dev):
+            self._load(latents, t, context)
+            # Lazy set-up (kernel builds, cuDNN plans, cuBLAS handles, the
+            # timestep frequencies) happens here, outside the capture.
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(GRAPH_WARMUPS):
+                    forward()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                self.out = forward()
+        UNET_GRAPH_CAPTURES += 1
+
+    def _load(self, latents: torch.Tensor, t: torch.Tensor, context: torch.Tensor) -> None:
+        # copy_ rounds float32 to the UNet's dtype as `.to(dtype)` does; a
+        # host scalar timestep is filled in, with no copy that waits.
+        self.latents.copy_(latents)
+        if t.dim() == 0 and not t.is_cuda:
+            self.t.fill_(t)
+        else:
+            self.t.copy_(t)
+        self.context.copy_(context)
+
+    def __call__(self, latents: torch.Tensor, t: torch.Tensor,
+                 context: torch.Tensor) -> torch.Tensor:
+        with torch.cuda.device(latents.device):
+            self._load(latents, t, context)
+            self.graph.replay()
+            return self.out.to(torch.float32, copy=True)
+
+
+class GraphedUNet:
+    """A bundle's `unet_apply`: (latents, t, context, mode=None,
+    stereo_active=False) -> eps in float32, the inputs cast to the UNet's
+    `dtype`.
+
+    A call that `graphable` admits replays a CUDA graph of `SDUNet.forward`,
+    one per `graph_key`, captured at the key's first call after
+    `GRAPH_WARMUPS` eager forwards on a side stream; the inputs are copied
+    into the graph's static buffers and the output comes back as a fresh
+    tensor, so a later replay never overwrites what a caller holds. The
+    graph launches what the eager forward launches, in the same order, so
+    it gives the same bits. Any other call (the CPU, an input that requires
+    grad, as null-text optimisation's embedding does) runs the forward
+    eagerly. At most `MAX_GRAPHS` graphs are kept, the least recently used
+    dropped first. Replays are ordered on the caller's current stream.
+
+    The graphs hold the UNet's parameters where they lay at capture: change
+    them in place (`copy_`), never by new tensors or modules, once the
+    bundle has run on a card."""
+
+    def __init__(self, unet: SDUNet, dtype: torch.dtype):
+        self.unet, self.dtype = unet, dtype
+        self.graphs: "collections.OrderedDict[tuple, _CapturedForward]" = \
+            collections.OrderedDict()
+
+    def eager(self, latents, t, context, mode: AttentionMode, stereo_active: bool):
+        out = self.unet(latents.to(self.dtype), t, context.to(self.dtype), mode=mode,
+                        stereo_active=stereo_active)
+        return out.float()
+
+    def __call__(self, latents, t, context, mode: Optional[AttentionMode] = None,
+                 stereo_active: bool = False) -> torch.Tensor:
+        global UNET_GRAPH_CALLS
+        mode = mode or AttentionMode()
+        if not graphable(latents, t, context):
+            return self.eager(latents, t, context, mode, stereo_active)
+        t = t if isinstance(t, torch.Tensor) else torch.as_tensor(t)
+        key = graph_key(latents, t, context, mode, stereo_active)
+        with torch.no_grad():
+            graph = self.graphs.pop(key, None)
+            if graph is None:
+                while len(self.graphs) >= MAX_GRAPHS:
+                    self.graphs.popitem(last=False)
+                graph = _CapturedForward(self.unet, self.dtype, latents, t, context, mode,
+                                         stereo_active)
+            self.graphs[key] = graph
+            out = graph(latents, t, context)
+        UNET_GRAPH_CALLS += 1
+        return out

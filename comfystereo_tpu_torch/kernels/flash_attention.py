@@ -27,7 +27,8 @@ forward (kernel or `reference`) saves q, k and v only, and the backward, on
 both devices, recomputes `reference_bf16` once and differentiates it
 (`FlashAttentionFn`). There is no backward kernel, as the JAX package has
 none: its VJP runs in XLA, outside any Pallas kernel. The backward launches
-nothing, and `LAUNCHES` counts forward launches only.
+nothing, and `LAUNCHES` counts forward launches only, as the host makes
+them: a UNet call served by a CUDA graph's replay adds none.
 """
 from __future__ import annotations
 
@@ -35,7 +36,10 @@ import torch
 
 from . import _common
 
-LAUNCHES = 0  # kernel launches since the last reset (plain-version calls don't count)
+# Host launches since the last reset (plain-version calls don't count): a
+# CUDA graph's capture counts each launch it records once, and its replays
+# (`diffusion/sd_unet.py:GraphedUNet`) run them on the card uncounted.
+LAUNCHES = 0
 
 _LANES = 128
 _CK = 1024  # the TPU kernel's KV chunk; enters only the feasibility rule

@@ -42,7 +42,12 @@ call), and in it `diffusion.warp_inpaint`, which holds `diffusion.warp`,
 `diffusion.vae_encode` (twice), `diffusion.unet` and `diffusion.scheduler`
 (once a step each), `diffusion.vae_decode` and `diffusion.composite`
 (`diffusion/sd_pipeline.py`, which counts `FRAMES`, `UNET_CALLS` and
-`UNET_ROWS`).
+`UNET_ROWS`). `diffusion/sd_unet.py` counts the `UNET_GRAPH_CAPTURES` of the
+UNet's forward as CUDA graphs and the `UNET_GRAPH_CALLS` that a graph's
+replay served (`GraphedUNet`, a bundle's `unet_apply`); on a card a
+`diffusion.unet` span then holds the input copies and one
+`cudaGraphLaunch`, and the profiler gives the graph's kernels that call's
+correlation id.
 
 `utils/video.py` counts `FRAMES` through `device_chunk`, the
 `UPLOAD_BYTES` it moves to a CUDA device, the `DOWNLOAD_BYTES` it brings

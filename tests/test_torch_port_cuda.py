@@ -6,6 +6,7 @@ absent. On the card run them with `python -m pytest tests/test_torch_port_cuda.p
 full 1080p shapes.
 """
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -817,6 +818,127 @@ def test_tiny_checkpoint_dir_on_card_matches_cpu(dev, tmp_path, monkeypatch):
         assert a.device.type == "cuda"
         assert float((a.cpu() - b).abs().max()) <= 1e-4
     assert len(outs[0][1]) > 10 and all(torch.equal(a, b) for a, b in zip(*[o[1] for o in outs]))
+
+
+def _graph_bundle(dev):
+    """The TINY UNet with the SD-inpainting input (9 channels) in bf16: at
+    64x64 latents its self-attentions take the flash kernel at both
+    levels."""
+    from comfystereo_tpu_torch.diffusion import (TINY_SD_UNET_CONFIG, TINY_SD_VAE_CONFIG,
+                                                 build_sd_model)
+    cfg = dataclasses.replace(TINY_SD_UNET_CONFIG, in_channels=9)
+    return build_sd_model(cfg, TINY_SD_VAE_CONFIG, dtype=torch.bfloat16, seed=0, device=dev)
+
+
+def _graph_inputs(dev, seed, batch=2):
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn((batch, 9, 64, 64), generator=gen).to(dev),
+            torch.randn((batch, 77, 64), generator=gen).to(dev))
+
+
+def _graph_counts():
+    from comfystereo_tpu_torch.diffusion import sd_unet
+    return sd_unet.UNET_GRAPH_CAPTURES, sd_unet.UNET_GRAPH_CALLS
+
+
+def test_graphed_unet_matches_eager_bit_for_bit(dev):
+    """`unet_apply` over the Fast path's 13 timesteps, each call with new
+    latents and context: one capture, 13 calls served by replays, each eps
+    bit-equal to the eager forward's. The flash kernel is in the graph:
+    `LAUNCHES` counts host launches, so it moves by a forward's launches for
+    each eager pass (the warm-up, the capture and the 13 eager references)
+    and not for a replay."""
+    from comfystereo_tpu_torch.diffusion import schedulers, sd_unet
+    from comfystereo_tpu_torch.diffusion.attention import AttentionMode
+    m = _graph_bundle(dev)
+    ts = [int(t) for t in schedulers.pndm_skip_timesteps(schedulers.make_pndm(20), 0.6)]
+    assert len(ts) == 13
+    with torch.no_grad():
+        lat, ctx = _graph_inputs(dev, 99)
+        before = flash_attention.LAUNCHES
+        m.unet_apply.eager(lat, 999, ctx, AttentionMode(), False)
+        per_forward = flash_attention.LAUNCHES - before
+        assert per_forward > 0
+        counts, before = _graph_counts(), flash_attention.LAUNCHES
+        for i, t in enumerate(ts):
+            lat, ctx = _graph_inputs(dev, i)
+            got = m.unet_apply(lat, t, ctx)
+            want = m.unet_apply.eager(lat, t, ctx, AttentionMode(), False)
+            assert got.dtype == torch.float32
+            assert torch.equal(got, want), f"call {i} (t={t})"
+    assert _graph_counts() == (counts[0] + 1, counts[1] + 13)
+    passes = sd_unet.GRAPH_WARMUPS + 1 + 13
+    assert flash_attention.LAUNCHES == before + passes * per_forward
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_graphed_unet_replays_channels_last_latents(dev, batch):
+    """Latents in the channels-last layout the VAE's encode leaves (the
+    Standard path's inversion and null-text steps) are replayed from a graph
+    of their own layout, bit-equal to the eager forward on them."""
+    from comfystereo_tpu_torch.diffusion.attention import AttentionMode
+    m = _graph_bundle(dev)
+    counts = _graph_counts()
+    with torch.no_grad():
+        for i in range(3):
+            lat, ctx = _graph_inputs(dev, i, batch=batch)
+            lat = lat.contiguous(memory_format=torch.channels_last)
+            got = m.unet_apply(lat, 801 - 40 * i, ctx)
+            want = m.unet_apply.eager(lat, 801 - 40 * i, ctx, AttentionMode(), False)
+            assert torch.equal(got, want), f"call {i}"
+    assert _graph_counts() == (counts[0] + 1, counts[1] + 3)
+
+
+def test_graphed_unet_output_held_stays_after_the_next_call(dev):
+    m = _graph_bundle(dev)
+    with torch.no_grad():
+        lat, ctx = _graph_inputs(dev, 0)
+        held = m.unet_apply(lat, 601, ctx)
+        kept = held.clone()
+        lat, ctx = _graph_inputs(dev, 1)
+        after = m.unet_apply(lat, 21, ctx)
+    torch.cuda.synchronize()
+    assert torch.equal(held, kept)
+    assert not torch.equal(held, after)
+
+
+def test_graphed_unet_serves_a_context_that_requires_grad_eagerly(dev):
+    """Null-text optimisation's embedding requires grad: its call runs the
+    forward eagerly, captures nothing, and the embedding gets its
+    gradient."""
+    from comfystereo_tpu_torch.diffusion.attention import AttentionMode
+    m = _graph_bundle(dev)
+    lat, ctx = _graph_inputs(dev, 0)
+    counts = _graph_counts()
+    u = ctx.clone().requires_grad_(True)
+    with torch.enable_grad():
+        eps = m.unet_apply(lat, 601, u)
+        eps.square().mean().backward()
+    assert _graph_counts() == counts and not m.unet_apply.graphs
+    assert u.grad is not None and bool(torch.isfinite(u.grad).all())
+    assert float(u.grad.abs().max()) > 0
+    with torch.no_grad():
+        assert torch.equal(eps.detach(), m.unet_apply.eager(lat, 601, ctx, AttentionMode(),
+                                                            False))
+
+
+@pytest.mark.parametrize("direction", ["uni", "bi"])
+def test_graphed_unet_stereo_modes_capture_a_graph_each(dev, direction):
+    """A stereo `AttentionMode` under CFG ([u_L, u_R, c_L, c_R]) before the
+    stereo start and after it: two graphs, each bit-equal to the eager
+    forward, and calls again on both keys capture nothing more."""
+    from comfystereo_tpu_torch.diffusion.attention import AttentionMode
+    m = _graph_bundle(dev)
+    mode = AttentionMode(stereo=True, direction=direction, use_cfg=True)
+    counts = _graph_counts()
+    with torch.no_grad():
+        for i, active in enumerate((False, True, False, True)):
+            lat, ctx = _graph_inputs(dev, i, batch=4)
+            got = m.unet_apply(lat, 401, ctx, mode=mode, stereo_active=active)
+            want = m.unet_apply.eager(lat, 401, ctx, mode, active)
+            assert torch.equal(got, want), f"call {i}, stereo_active {active}"
+    assert _graph_counts() == (counts[0] + 2, counts[1] + 4)
+    assert len(m.unet_apply.graphs) == 2
 
 
 @pytest.mark.parametrize("shape", [(320, 1280), (640, 320, 3, 3)])

@@ -22,13 +22,14 @@ from .clip_text import (SD15_TEXT_CONFIG, SD21_TEXT_CONFIG,  # noqa: F401
 from .clip_tokenizer import CLIPBPETokenizer  # noqa: F401
 from .helpers import diffusion_step, diffusion_step_no_cfg, init_latent  # noqa: F401
 from .inversion import InversionResult, invert  # noqa: F401
-from .models import (LATENT_SCALE, DiffusionModel, HashTextEncoder,  # noqa: F401
-                     LatentUNet, SimpleVAE, UNetConfig, make_toy_model)
+from .models import (LATENT_SCALE, SDXL_LATENT_SCALE, DiffusionModel,  # noqa: F401
+                     HashTextEncoder, LatentUNet, SimpleVAE, UNetConfig, make_toy_model)
 from .porting import (build_sd_model, load_sd_from_diffusers_dir,  # noqa: F401
                       state_dict_from_jax, toy_state_dicts_from_jax)
 from .sd_pipeline import (StereoResult, backward_warp_right,  # noqa: F401
                           border_prefill, diffusion_inpaint, text2stereo, warp_inpaint)
 from .sd_unet import (SD15_INPAINT_UNET_CONFIG, SD15_UNET_CONFIG,  # noqa: F401
-                      SD21_UNET_CONFIG, TINY_SD_UNET_CONFIG, SDUNet, SDUNetConfig)
+                      SD21_UNET_CONFIG, SDXL_INPAINT_UNET_CONFIG, TINY_SD_UNET_CONFIG,
+                      SDUNet, SDUNetConfig)
 from .sd_vae import SD_VAE_CONFIG, TINY_SD_VAE_CONFIG, SDVAE, SDVAEConfig  # noqa: F401
 from .stereo_latent import stereo_shift, stereo_shift_with_mask  # noqa: F401

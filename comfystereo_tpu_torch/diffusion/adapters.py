@@ -26,7 +26,9 @@ from ..device import DeviceLike, resolve_device
 from ..utils.caching import EmbeddingCache, get_or_load_model
 from .models import DiffusionModel, HashTextEncoder
 
-SUPPORTED_MODEL_TYPES = ["SD1", "SD2"]
+# SDXL: Fast mode only (Standard mode's inversion does not carry its
+# text-time conditioning).
+SUPPORTED_MODEL_TYPES = ["SD1", "SD2", "SDXL"]
 
 
 def detect_model_type(model_config: Any) -> str:

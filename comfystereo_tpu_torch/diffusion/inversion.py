@@ -1,11 +1,11 @@
 """DDIM inversion with null-text optimisation.
 
 Port of `comfystereo_tpu/diffusion/inversion.py`: VAE-encode the image
-(x 0.18215), run the forward DDIM loop with the conditional embedding, then
-per timestep optimise the unconditional embedding with Adam (lr
-1e-2 * (1 - i/100), at most `num_inner_steps` iterations, early stop at
-epsilon + i * 2e-5) so that the CFG step reproduces the inversion
-trajectory.
+(times the bundle's latent scale), run the forward DDIM loop with the
+conditional embedding, then per timestep optimise the unconditional
+embedding with Adam (lr 1e-2 * (1 - i/100), at most `num_inner_steps`
+iterations, early stop at epsilon + i * 2e-5) so that the CFG step
+reproduces the inversion trajectory.
 
 The JAX package's scanned and `lax.while_loop` forms become host loops: the
 inner loop reads each loss back to decide whether to go on, as the JAX
@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from . import schedulers
-from .models import LATENT_SCALE, DiffusionModel
+from .models import DiffusionModel
 
 
 class InversionResult(NamedTuple):
@@ -34,13 +34,13 @@ class InversionResult(NamedTuple):
 
 
 def image_to_latent(model: DiffusionModel, image_nchw: torch.Tensor) -> torch.Tensor:
-    """[-1, 1] NCHW image -> scaled latents."""
-    return model.vae_encode(image_nchw) * LATENT_SCALE
+    """[-1, 1] NCHW image -> latents scaled by the bundle's `latent_scale`."""
+    return model.vae_encode(image_nchw) * model.latent_scale
 
 
 def latent_to_image(model: DiffusionModel, latents: torch.Tensor) -> torch.Tensor:
     """Scaled latents -> [-1, 1] NCHW image."""
-    return model.vae_decode(latents / LATENT_SCALE)
+    return model.vae_decode(latents / model.latent_scale)
 
 
 def ddim_invert_loop(model: DiffusionModel, sched: schedulers.DiffusionSchedule,

@@ -1,12 +1,12 @@
 """Model bundle, the toy model and the stand-in text encoder.
 
-Port of `comfystereo_tpu/diffusion/models.py`: `LATENT_SCALE`, the
-`DiffusionModel` bundle the pipelines consume, `HashTextEncoder`, the gated
-transformers CLIP loader (`load_hf_text_encoder`), and the small
-random-weight model that wires the whole stack (`LatentUNet`, `SimpleVAE`,
-`make_toy_model`). The bundle's apply
-functions close over `nn.Module`s, so they take no parameter argument (the
-JAX bundle's take a parameter tree).
+Port of `comfystereo_tpu/diffusion/models.py`: `LATENT_SCALE` (SD's; a
+bundle carries its own), the `DiffusionModel` bundle the pipelines consume,
+`HashTextEncoder`, the gated transformers CLIP loader
+(`load_hf_text_encoder`), and the small random-weight model that wires the
+whole stack (`LatentUNet`, `SimpleVAE`, `make_toy_model`). The bundle's
+apply functions close over `nn.Module`s, so they take no parameter argument
+(the JAX bundle's take a parameter tree).
 
 The toy modules follow the flax modules' numerics: 'SAME' padding (a
 stride-2 3x3 conv pads (0, 1)), flax's group and layer norms (eps 1e-6),
@@ -29,8 +29,10 @@ from ..utils.caching import EmbeddingCache
 from .attention import AttentionMode, bn_attention
 from .sd_unet import GroupNorm, LayerNorm
 
-# SD latent scaling
+# SD latent scaling, the default of a bundle's `latent_scale`
 LATENT_SCALE = 0.18215
+# SDXL's (its VAE's scaling_factor)
+SDXL_LATENT_SCALE = 0.13025
 
 
 # ---------------------------------------------------------------------------
@@ -292,8 +294,12 @@ class DiffusionModel:
     """Functional bundle consumed by the pipelines.
 
     unet_apply(latents_nchw, t, context, mode=None, stereo_active=False) -> eps
-    vae_encode(x) / vae_decode(z), with the SD 0.18215 scaling OUTSIDE.
-    All three take and return float32 tensors on `device`.
+    vae_encode(x) / vae_decode(z), with the latent scaling (`latent_scale`:
+    SD's 0.18215 by default, SDXL's 0.13025) OUTSIDE.
+    All three take and return float32 tensors on `device`. A bundle whose
+    UNet takes SDXL's text-time conditioning has a `pooled_encode` (prompt
+    -> pooled text embedding [1, D] float32), and its `unet_apply` then
+    also takes `text_embeds` [B, D] and `time_ids` [B, 6] by keyword.
     """
 
     unet_apply: Callable
@@ -311,6 +317,8 @@ class DiffusionModel:
     sample_size: int = 512
     unet: Optional[torch.nn.Module] = None
     vae: Optional[torch.nn.Module] = None
+    latent_scale: float = LATENT_SCALE
+    pooled_encode: Optional[Callable] = None
 
 
 def make_toy_model(seed: int = 0, image_size: int = 32, cfg: UNetConfig = UNetConfig(),

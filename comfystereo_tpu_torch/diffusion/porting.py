@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from .models import DiffusionModel, HashTextEncoder
+from .models import LATENT_SCALE, SDXL_LATENT_SCALE, DiffusionModel, HashTextEncoder
 from .sd_unet import SD15_UNET_CONFIG, GraphedUNet, SDUNet, SDUNetConfig
 from .sd_vae import SD_VAE_CONFIG, SDVAE, SDVAEConfig
 
@@ -432,10 +432,23 @@ def looks_like_ldm(state_dict: Mapping[str, Any]) -> bool:
                for k in state_dict)
 
 
+def _depth(diffusers_sd: Mapping[str, Any], prefix: str) -> int:
+    """Transformer blocks of the spatial transformer at `prefix` (1 where
+    the state dict holds none of its keys)."""
+    k = 0
+    while any(key.startswith(f"{prefix}.transformer_blocks.{k}.") for key in diffusers_sd):
+        k += 1
+    return max(k, 1)
+
+
 def infer_unet_config(diffusers_sd: Mapping[str, Any]) -> SDUNetConfig:
-    """SDUNetConfig from a diffusers-layout state dict's shapes. Head counts
-    are not recoverable from shapes: SD1.x uses 8 heads, SD2.x (1024-d
-    context) 64-d heads."""
+    """SDUNetConfig from a diffusers-layout state dict's shapes: the levels
+    with attention and each one's transformer depth (the deepest level's
+    from the mid block where it has none), linear or 1x1-conv projections
+    by the rank of proj_in, and SDXL's text-time conditioning where
+    `add_embedding` is present. Head counts are not recoverable from
+    shapes: SD1.x uses 8 heads, SD2.x (1024-d context) and SDXL 64-d heads;
+    nor is SDXL's time-id sinusoid width, 256."""
     def shape(k):
         return tuple(diffusers_sd[k].shape)
 
@@ -445,14 +458,34 @@ def infer_unet_config(diffusers_sd: Mapping[str, Any]) -> SDUNetConfig:
     while f"down_blocks.{i}.resnets.0.conv1.weight" in diffusers_sd:
         blocks.append(shape(f"down_blocks.{i}.resnets.0.conv1.weight")[0])
         i += 1
+    n = len(blocks)
     layers = 0
     while f"down_blocks.0.resnets.{layers}.conv1.weight" in diffusers_sd:
         layers += 1
-    ctx = shape("down_blocks.0.attentions.0.transformer_blocks.0.attn2.to_k.weight")[1]
-    heads = tuple(ch // 64 for ch in blocks) if ctx >= 1024 else 8
-    return SDUNetConfig(in_channels=in_ch, out_channels=shape("conv_out.weight")[0],
-                        block_out_channels=tuple(blocks), layers_per_block=layers,
-                        cross_attention_dim=ctx, attention_head_dim=heads)
+    attn = [any(k.startswith(f"down_blocks.{i}.attentions.") for k in diffusers_sd)
+            for i in range(n)]
+    depths = [_depth(diffusers_sd, f"down_blocks.{i}.attentions.0") if attn[i] else 1
+              for i in range(n)]
+    if not attn[-1]:
+        depths[-1] = _depth(diffusers_sd, "mid_block.attentions.0")
+    first = f"down_blocks.{attn.index(True)}.attentions.0"
+    ctx = shape(f"{first}.transformer_blocks.0.attn2.to_k.weight")[1]
+    text_time = "add_embedding.linear_1.weight" in diffusers_sd
+    heads = tuple(ch // 64 for ch in blocks) if ctx >= 1024 or text_time else 8
+    sd1_levels = attn == [i < n - 1 for i in range(n)]
+    proj_in = diffusers_sd.get(f"{first}.proj_in.weight")
+    return SDUNetConfig(
+        in_channels=in_ch, out_channels=shape("conv_out.weight")[0],
+        block_out_channels=tuple(blocks), layers_per_block=layers,
+        cross_attention_dim=ctx, attention_head_dim=heads,
+        down_block_types=None if sd1_levels else tuple(
+            "CrossAttnDownBlock2D" if a else "DownBlock2D" for a in attn),
+        transformer_layers_per_block=1 if set(depths) == {1} else tuple(depths),
+        use_linear_projection=proj_in is not None and len(proj_in.shape) == 2,
+        addition_embed_type="text_time" if text_time else None,
+        addition_time_embed_dim=256 if text_time else None,
+        projection_class_embeddings_input_dim=(
+            shape("add_embedding.linear_1.weight")[1] if text_time else None))
 
 
 def infer_vae_config(diffusers_sd: Mapping[str, Any]) -> SDVAEConfig:
@@ -496,7 +529,8 @@ def build_sd_model(unet_cfg=None, vae_cfg=None, dtype: torch.dtype = torch.float
                    unet_state: Optional[Mapping[str, torch.Tensor]] = None,
                    vae_state: Optional[Mapping[str, torch.Tensor]] = None,
                    text_encode: Optional[Callable] = None,
-                   weight_quant: bool = False, init_mode: str = "random") -> DiffusionModel:
+                   weight_quant: bool = False, init_mode: str = "random",
+                   pooled_encode: Optional[Callable] = None) -> DiffusionModel:
     """Assemble a `DiffusionModel` from `SDUNet` and `SDVAE`.
 
     Weights: the given state dicts (e.g. from `state_dict_from_jax` or a
@@ -511,7 +545,11 @@ def build_sd_model(unet_cfg=None, vae_cfg=None, dtype: torch.dtype = torch.float
     bf16, the same API; a UNet quantised further by the caller keeps its
     w8 layers. `unet_apply` is a `sd_unet.GraphedUNet`: on a card, a call
     that needs no gradient replays a CUDA graph of the UNet's forward.
-    `device=None` means CUDA.
+    `device=None` means CUDA. A UNet with text-time conditioning (SDXL)
+    gives the bundle SDXL's latent scale, 0.13025 (any other SD's is
+    0.18215), and its pooled text embeddings come from `pooled_encode`
+    (prompt -> [1, pooled]), by default a hash stub as the text
+    embeddings' `HashTextEncoder`.
     """
     if init_mode not in ("random", "zeros"):
         raise ValueError(f"build_sd_model: init_mode {init_mode!r} not in ('random', 'zeros')")
@@ -532,6 +570,9 @@ def build_sd_model(unet_cfg=None, vae_cfg=None, dtype: torch.dtype = torch.float
     if weight_quant:
         from .quantize import quantize_module_
         quantize_module_(unet, dtype)
+    if unet_cfg.text_time and pooled_encode is None:
+        stub = HashTextEncoder(dim=unet_cfg.pooled_dim, max_length=1, device=dev)
+        pooled_encode = lambda text: stub(text)[:, 0]  # noqa: E731
 
     return DiffusionModel(
         unet_apply=GraphedUNet(unet, dtype),
@@ -543,7 +584,9 @@ def build_sd_model(unet_cfg=None, vae_cfg=None, dtype: torch.dtype = torch.float
         latent_channels=vae_cfg.latent_channels,
         context_dim=unet_cfg.cross_attention_dim,
         unet_in_channels=unet_cfg.in_channels,
-        unet=unet, vae=vae)
+        unet=unet, vae=vae,
+        latent_scale=SDXL_LATENT_SCALE if unet_cfg.text_time else LATENT_SCALE,
+        pooled_encode=pooled_encode if unet_cfg.text_time else None)
 
 
 def _find_safetensors(d: str, names=("diffusion_pytorch_model.safetensors",

@@ -29,13 +29,17 @@ The Fast path's stages are spans (`utils.profiling.span`), one per stage:
 `diffusion.vae_encode` (each of the two encodes), `diffusion.unet` (each
 UNet call of the inpainting loop), `diffusion.scheduler` (each step's
 guidance and PNDM step), `diffusion.vae_decode` and `diffusion.composite`.
-The module counts the `FRAMES` through `warp_inpaint`, and the
-`UNET_CALLS` of the inpainting loop with their latent `UNET_ROWS`, the
-guidance's doubling included.
+With a bundle whose UNet takes SDXL's text-time conditioning,
+`diffusion.add_cond` (in `diffusion.warp_inpaint`, before the encodes)
+builds the pooled text embeddings and the time ids for both halves of the
+guidance, which every UNet call of the loop takes. The module counts the
+`FRAMES` through `warp_inpaint`, and the `UNET_CALLS` of the inpainting
+loop with their latent `UNET_ROWS`, the guidance's doubling included, and
+the `ADDED_COND_CALLS` among them that carried text-time conditioning.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -57,6 +61,7 @@ Noise = Tuple[torch.Tensor, Optional[torch.Tensor]]
 FRAMES = 0  # frames through warp_inpaint
 UNET_CALLS = 0  # UNet calls of the inpainting loop
 UNET_ROWS = 0  # latent rows through them (both halves of the guidance's batch)
+ADDED_COND_CALLS = 0  # those of them that carried text-time conditioning (SDXL)
 
 
 class StereoResult(NamedTuple):
@@ -97,7 +102,15 @@ def text2stereo(model: DiffusionModel, image_nchw: torch.Tensor, depth: torch.Te
     for Euler the inverted latent is moved to sigma space at loop entry.
     `noise`: the deblur noise [1, C, h, w] to use instead of the draw from
     a CPU generator seeded `seed`. Returns [1, H, W, 3] images in [0, 1].
+    A bundle with text-time conditioning (SDXL) raises NotImplementedError:
+    the inversion and its null-text backward do not carry it; such a bundle
+    runs the Fast path.
     """
+    if model.pooled_encode is not None:
+        raise NotImplementedError(
+            "Standard (DDIM) mode does not run a UNet with text-time conditioning (SDXL): "
+            "its inversion and null-text optimisation do not carry the pooled embedding "
+            "and time ids; use Fast (Warp + Inpaint) mode")
     if scheduler == "auto":
         scheduler = "euler" if detect_model_type(model) == "SD2" else "ddim"
     sched = (schedulers.make_euler(num_inference_steps) if scheduler == "euler"
@@ -224,12 +237,16 @@ def frame_noise(seeds: Sequence[int], shape, n_steps: int, device) -> Noise:
 
 def _inpaint_loop(model: DiffusionModel, sched, ts: Sequence[int], nine_ch: bool,
                   lat0, mask_lat, extra, ctx, init_noise, step_noise,
-                  guidance_scale: float) -> torch.Tensor:
-    """The PLMS inpainting loop over `ts` (host loop, all frames batched)."""
-    global UNET_CALLS, UNET_ROWS
+                  guidance_scale: float, added: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The PLMS inpainting loop over `ts` (host loop, all frames batched).
+    `added`: the text-time conditioning of the guidance's two halves
+    (`text_embeds` and `time_ids`, each [2, ...]), which every UNet call
+    takes; empty for a UNet without it."""
+    global UNET_CALLS, UNET_ROWS, ADDED_COND_CALLS
     b = lat0.shape[0]
     latents = schedulers.add_noise(sched, lat0, init_noise, ts[0])
     ctx_b = ctx.repeat_interleave(b, dim=0)                  # [u x B | c x B]
+    added_b = {k: v.repeat_interleave(b, dim=0) for k, v in added.items()}
     ets = torch.zeros((4,) + tuple(lat0.shape), dtype=lat0.dtype, device=lat0.device)
     cur = torch.zeros_like(lat0)
     # The known content's noise level is the UPCOMING timestep (-1: clean).
@@ -239,9 +256,10 @@ def _inpaint_loop(model: DiffusionModel, sched, ts: Sequence[int], nine_ch: bool
         if nine_ch:  # [latents | mask | masked-image latents]
             lat_in = torch.cat([lat_in, torch.cat([extra] * 2, dim=0)], dim=1)
         with span("diffusion.unet"):
-            eps = model.unet_apply(lat_in, t, ctx_b)
+            eps = model.unet_apply(lat_in, t, ctx_b, **added_b)
         UNET_CALLS += 1
         UNET_ROWS += lat_in.shape[0]
+        ADDED_COND_CALLS += bool(added_b)
         with span("diffusion.scheduler"):
             eps_u, eps_c = eps.chunk(2, dim=0)
             eps = eps_u + guidance_scale * (eps_c - eps_u)
@@ -259,7 +277,8 @@ def diffusion_inpaint(model: DiffusionModel, image_nchw: torch.Tensor,
                       num_inference_steps: int = 20, strength: float = 0.75,
                       guidance_scale: float = 7.5,
                       seed: Union[int, Sequence[int]] = 0,
-                      noise: Optional[Noise] = None) -> torch.Tensor:
+                      noise: Optional[Noise] = None,
+                      original_size: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Inpainting with two model-dependent paths:
 
     * 9-channel SD-inpainting UNets (`model.unet_in_channels == 2*C + 1`):
@@ -272,10 +291,22 @@ def diffusion_inpaint(model: DiffusionModel, image_nchw: torch.Tensor,
     frame or one per frame. `noise`: (init, steps) to use instead of the
     seeded draws (steps only for the blending path). PNDM (PLMS) with its
     strength-based step skipping. Returns the decoded [-1, 1] NCHW image.
+
+    A bundle with text-time conditioning (SDXL, `model.pooled_encode`)
+    gives every UNet call the pooled embeddings of "" and the prompt and
+    the time ids (original height and width, crop 0 and 0, target height
+    and width), the target being the image's size and the original
+    `original_size` (the image's size where it is None), as diffusers'
+    SDXL pipelines default them, for both halves of the guidance.
     """
     sched = schedulers.make_pndm(num_inference_steps)
     ctx = torch.cat([model.text_encode(""), model.text_encode(prompt)], dim=0)
     nine_ch = model.unet_in_channels == 2 * model.latent_channels + 1
+    added = {}
+    if model.pooled_encode is not None:
+        with span("diffusion.add_cond"):
+            added = _text_time(model, prompt, tuple(image_nchw.shape[-2:]),
+                               original_size)
 
     with span("diffusion.vae_encode"):
         lat0 = image_to_latent(model, image_nchw)
@@ -297,9 +328,21 @@ def diffusion_inpaint(model: DiffusionModel, image_nchw: torch.Tensor,
         noise = frame_noise(seeds, tuple(lat0.shape[1:]), 0 if nine_ch else len(ts),
                             lat0.device)
     latents = _inpaint_loop(model, sched, ts, nine_ch, lat0, mask_lat, extra, ctx,
-                            noise[0], noise[1], float(guidance_scale))
+                            noise[0], noise[1], float(guidance_scale), added)
     with span("diffusion.vae_decode"):
         return latent_to_image(model, latents)
+
+
+def _text_time(model: DiffusionModel, prompt: str, target: Tuple[int, int],
+               original: Optional[Tuple[int, int]]) -> Dict[str, torch.Tensor]:
+    """SDXL's added conditioning of the guidance's halves ("" then the
+    prompt): `text_embeds` [2, pooled] and `time_ids` [2, 6] float32 on the
+    bundle's device."""
+    oh, ow = original if original is not None else target
+    ids = torch.tensor([[float(oh), float(ow), 0.0, 0.0, float(target[0]),
+                         float(target[1])]] * 2, dtype=torch.float32, device=model.device)
+    pooled = torch.cat([model.pooled_encode(""), model.pooled_encode(prompt)], dim=0)
+    return {"text_embeds": pooled.float(), "time_ids": ids}
 
 
 def _composite(inpainted: torch.Tensor, prefilled: torch.Tensor,
@@ -315,10 +358,13 @@ def warp_inpaint(model: DiffusionModel, image_nhwc: torch.Tensor,
                  divergence: float = 5.0, num_inference_steps: int = 20,
                  strength: float = 0.75, guidance_scale: float = 7.5,
                  seed: Union[int, Sequence[int]] = 0,
-                 noise: Optional[Noise] = None) -> StereoResult:
+                 noise: Optional[Noise] = None,
+                 original_size: Optional[Tuple[int, int]] = None) -> StereoResult:
     """Fast path: warp the right eye, inpaint disocclusions, recomposite in
     pixel space inside the mask only. image [B,H,W,C] in [0, 1], depth
-    [B,H,W]; `seed` is one int or one per frame."""
+    [B,H,W]; `seed` is one int or one per frame; `original_size`, the
+    frames' (height, width) before any resize to the model's size, enters
+    SDXL's time ids (`diffusion_inpaint`)."""
     global FRAMES
     with span("diffusion.warp_inpaint"):
         with span("diffusion.warp"):
@@ -327,7 +373,7 @@ def warp_inpaint(model: DiffusionModel, image_nhwc: torch.Tensor,
             img_nchw = prefilled.permute(0, 3, 1, 2) * 2.0 - 1.0
         inpainted = diffusion_inpaint(
             model, img_nchw, mask[:, None].float(), prompt, num_inference_steps,
-            strength, guidance_scale, seed, noise)
+            strength, guidance_scale, seed, noise, original_size)
         right = _composite(inpainted, prefilled, mask)
     FRAMES += image_nhwc.shape[0]
     return StereoResult(left=image_nhwc, right=right)

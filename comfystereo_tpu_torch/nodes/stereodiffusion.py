@@ -237,7 +237,8 @@ class StereoDiffusionNode:
                         model, img, dm, prompt, divergence=scale_factor,
                         num_inference_steps=num_inference_steps,
                         strength=denoise_strength, guidance_scale=guidance_scale,
-                        seed=seed + np.arange(img.shape[0], dtype=np.uint64))
+                        seed=seed + np.arange(img.shape[0], dtype=np.uint64),
+                        original_size=(orig_h, orig_w))
             left = _resize_to(out.left, orig_h, orig_w).cpu()
             right = _resize_to(out.right, orig_h, orig_w).cpu()
             return torch.cat([left, right], dim=2), left, right

@@ -39,10 +39,12 @@ chunk path's spans, from the entry down:
 
 The Stereo Diffusion node's Fast path: `node.stereo_diffusion` (the node
 call), and in it `diffusion.warp_inpaint`, which holds `diffusion.warp`,
-`diffusion.vae_encode` (twice), `diffusion.unet` and `diffusion.scheduler`
-(once a step each), `diffusion.vae_decode` and `diffusion.composite`
-(`diffusion/sd_pipeline.py`, which counts `FRAMES`, `UNET_CALLS` and
-`UNET_ROWS`). `diffusion/sd_unet.py` counts the `UNET_GRAPH_CAPTURES` of the
+with an SDXL bundle `diffusion.add_cond` (its pooled embeddings and time
+ids), `diffusion.vae_encode` (twice), `diffusion.unet` and
+`diffusion.scheduler` (once a step each), `diffusion.vae_decode` and
+`diffusion.composite` (`diffusion/sd_pipeline.py`, which counts `FRAMES`,
+`UNET_CALLS`, `UNET_ROWS` and the `ADDED_COND_CALLS` that carried SDXL's
+text-time conditioning). `diffusion/sd_unet.py` counts the `UNET_GRAPH_CAPTURES` of the
 UNet's forward as CUDA graphs and the `UNET_GRAPH_CALLS` that a graph's
 replay served (`GraphedUNet`, a bundle's `unet_apply`); on a card a
 `diffusion.unet` span then holds the input copies and one

@@ -941,6 +941,66 @@ def test_graphed_unet_stereo_modes_capture_a_graph_each(dev, direction):
     assert len(m.unet_apply.graphs) == 2
 
 
+def _sdxl_graph_bundle(dev):
+    """A tiny SDXL UNet (the SDXL driver's tiny settings: no attention on
+    the first level, transformer depths 1 and 2, linear projections,
+    text-time conditioning, 9 input channels) in bf16: at 64x64 latents its
+    second level's self-attentions take the flash kernel."""
+    from comfystereo_tpu_torch.diffusion import TINY_SD_VAE_CONFIG, SDUNetConfig, build_sd_model
+    from stereo_bench.drivers.stereo_diffusion_node_xl import TINY_SETTINGS
+    cfg = SDUNetConfig(**{k: tuple(v) if isinstance(v, list) else v
+                          for k, v in TINY_SETTINGS["unet"].items()})
+    return build_sd_model(cfg, TINY_SD_VAE_CONFIG, dtype=torch.bfloat16, seed=0, device=dev)
+
+
+def test_graphed_sdxl_unet_replays_new_conditioning_bit_for_bit(dev):
+    """SDXL's `unet_apply` over the Fast path's 13 timesteps, each call with
+    new latents, context, pooled embeddings and time ids: one capture, 13
+    replays, each eps bit-equal to the eager forward's on that call's own
+    conditioning (a replay that kept an earlier call's ids would differ),
+    and the flash kernel in the graph."""
+    from comfystereo_tpu_torch.diffusion import schedulers
+    from comfystereo_tpu_torch.diffusion.attention import AttentionMode
+    m = _sdxl_graph_bundle(dev)
+    ts = [int(t) for t in schedulers.pndm_skip_timesteps(schedulers.make_pndm(20), 0.6)]
+    counts, outs = _graph_counts(), []
+    with torch.no_grad():
+        before = flash_attention.LAUNCHES
+        for i, t in enumerate(ts):
+            gen = torch.Generator().manual_seed(100 + i)
+            lat = torch.randn((2, 9, 64, 64), generator=gen).to(dev)
+            ctx = torch.randn((2, 77, 32), generator=gen).to(dev)
+            pooled = torch.randn((2, 16), generator=gen).to(dev)
+            ids = torch.tensor([[64.0 * (i + 1), 96.0, 0.0, 0.0, 128.0, 128.0]] * 2, device=dev)
+            got = m.unet_apply(lat, t, ctx, text_embeds=pooled, time_ids=ids)
+            want = m.unet_apply.eager(lat, t, ctx, AttentionMode(), False, pooled, ids)
+            assert torch.equal(got, want), f"call {i} (t={t})"
+            outs.append(got)
+    assert _graph_counts() == (counts[0] + 1, counts[1] + 13)
+    assert flash_attention.LAUNCHES > before
+    assert not torch.equal(outs[0], outs[1])
+
+
+def test_graphed_sd_unet_keys_as_before_sdxl(dev, monkeypatch):
+    """An SD 1.5-style bundle's calls carry no text-time conditioning: the
+    graph key has the form it had before SDXL's fields (13 entries), the
+    added embedding never runs, and the replay is the eager forward's bits.
+    (Its launches a frame, `launches_per_frame.sd_fast`, are compared with
+    the parent commit's in the benchmark's traced runs.)"""
+    from comfystereo_tpu_torch.diffusion import sd_unet
+    from comfystereo_tpu_torch.diffusion.attention import AttentionMode
+    monkeypatch.setattr(sd_unet.SDUNet, "_text_time",
+                        lambda *a: pytest.fail("text-time conditioning on an SD UNet"))
+    m = _graph_bundle(dev)
+    lat, ctx = _graph_inputs(dev, 5)
+    key = sd_unet.graph_key(lat, 601, ctx, AttentionMode(), False)
+    assert len(key) == 13
+    with torch.no_grad():
+        got = m.unet_apply(lat, 601, ctx)
+        assert torch.equal(got, m.unet_apply.eager(lat, 601, ctx, AttentionMode(), False))
+    assert list(m.unet_apply.graphs) == [key]
+
+
 @pytest.mark.parametrize("shape", [(320, 1280), (640, 320, 3, 3)])
 def test_w8_layer_on_card_matches_cpu(dev, shape):
     """A bf16 layer quantised on the card has the CPU's q and scale bit for

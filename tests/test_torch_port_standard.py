@@ -362,7 +362,8 @@ def test_detect_model_type_matches_jax(toy, toy1024):
         ["SD2", "SDXL", "FLUX", "SD1", "SD1"]
     assert detect_model_type(toy[1]) == j_detect(toy[0]) == "SD1"
     assert detect_model_type(toy1024[1]) == j_detect(toy1024[0]) == "SD2"
-    assert SUPPORTED_MODEL_TYPES == ["SD1", "SD2"]
+    # The port runs SDXL too (Fast mode; Standard mode raises for it).
+    assert SUPPORTED_MODEL_TYPES == ["SD1", "SD2", "SDXL"]
 
 
 # --- inversion ---------------------------------------------------------------------
